@@ -1,0 +1,511 @@
+"""Per-ZMW consensus pipeline: filter -> POA draft -> Arrow polish -> QV.
+
+Port of pbccs_tpu.pipeline's batch path (reference
+include/pacbio/ccs/Consensus.h:224-555): the host stages (filter, POA
+draft, read mapping) run per ZMW on the CPU, then every surviving ZMW of
+the batch polishes in one lockstep BatchPolisher on the device, with the
+2x band retry for ZMWs whose reads failed the alpha/beta mating test.
+Yield accounting keeps the reference's result categories
+(Consensus.h:155-208, ccs.cpp:233-262).
+
+Not ported: quarantine bisection, the watchdog, the memory governor and
+the serial per-ZMW path.  A batch whose device loop bails
+(device_refine.RefineBailout) is recorded as Failure.OTHER for each of
+its ZMWs, logged, and counted in ResultTally.bailouts."""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import logging
+import time
+import traceback
+from typing import Sequence
+
+import numpy as np
+
+from pbccs_tpu_torch.device import resolve_device
+from pbccs_tpu_torch.models.arrow.params import decode_bases, encode_bases
+from pbccs_tpu_torch.models.arrow.refine import RefineOptions, \
+    predicted_accuracy
+from pbccs_tpu_torch.models.arrow.scorer import (ADD_ALPHABETAMISMATCH,
+                                                 ADD_SUCCESS)
+from pbccs_tpu_torch.parallel.device_refine import RefineBailout
+from pbccs_tpu_torch.poa.sparse import PoaAlignmentSummary, SparsePoa
+
+_log = logging.getLogger(__name__)
+
+# Local-context adapter flags (reference pbbam LocalContextFlags; a subread is
+# a full pass iff it is flanked by adapter hits on both sides).
+ADAPTER_BEFORE = 1
+ADAPTER_AFTER = 2
+
+
+def record_zmw_failure(stage: str, exc: BaseException,
+                       zmw: str | None = None) -> None:
+    """Log one absorbed per-ZMW/per-batch exception with its traceback."""
+    where = f"{stage}[{zmw}]" if zmw else stage
+    tb = "".join(traceback.format_exception(type(exc), exc,
+                                            exc.__traceback__))
+    _log.warning("%s: absorbed %s: %s\n%s", where, type(exc).__name__, exc,
+                 tb)
+
+
+@dataclasses.dataclass(frozen=True)
+class ConsensusSettings:
+    """Pipeline knobs, reference defaults
+    (reference include/pacbio/ccs/Consensus.h:86-111)."""
+
+    max_poa_coverage: int = 1024
+    min_length: int = 10
+    min_passes: int = 3
+    min_snr: float = 4.0  # CLI-level gate in the reference (ccs.cpp:441)
+    min_predicted_accuracy: float = 0.90
+    min_zscore: float = -5.0
+    max_drop_fraction: float = 0.34
+    refine: RefineOptions = dataclasses.field(default_factory=RefineOptions)
+
+
+@dataclasses.dataclass
+class Subread:
+    """One subread of a ZMW (reference ReadType, Consensus.h:115-124)."""
+
+    id: str
+    seq: np.ndarray  # int8 base codes
+    flags: int = ADAPTER_BEFORE | ADAPTER_AFTER
+    read_accuracy: float = 0.8
+
+    @classmethod
+    def from_str(cls, id: str, seq: str, **kw) -> "Subread":
+        return cls(id, encode_bases(seq), **kw)
+
+    @property
+    def is_full_pass(self) -> bool:
+        return bool(self.flags & ADAPTER_BEFORE) and bool(self.flags & ADAPTER_AFTER)
+
+
+@dataclasses.dataclass
+class Chunk:
+    """All subreads of one ZMW (reference ChunkType, Consensus.h:126-133)."""
+
+    id: str
+    reads: list[Subread]
+    snr: np.ndarray  # (4,) per-channel SNR, ACGT order
+
+
+class Failure(enum.Enum):
+    """Yield categories (reference ResultType, Consensus.h:155-208)."""
+
+    SUCCESS = "Success"
+    POOR_SNR = "PoorSNR"
+    NO_SUBREADS = "NoSubreads"
+    TOO_SHORT = "TooShort"
+    TOO_MANY_UNUSABLE = "TooManyUnusable"
+    TOO_FEW_PASSES = "TooFewPasses"
+    NON_CONVERGENT = "NonConvergent"
+    POOR_QUALITY = "PoorQuality"
+    OTHER = "Other"
+
+
+@dataclasses.dataclass
+class ConsensusResult:
+    """One CCS read (reference ConsensusType, Consensus.h:135-153)."""
+
+    id: str
+    sequence: str
+    qvs: np.ndarray
+    num_passes: int
+    predicted_accuracy: float
+    global_zscore: float
+    avg_zscore: float
+    zscores: np.ndarray
+    status_counts: list[int]
+    mutations_tested: int
+    mutations_applied: int
+    snr: np.ndarray
+    elapsed_ms: float
+
+    @property
+    def qualities(self) -> str:
+        """Phred+33 ASCII, clamped to [0, 93]
+        (reference QVsToASCII, Consensus.h:328-339)."""
+        return "".join(chr(min(max(0, int(q)), 93) + 33) for q in self.qvs)
+
+
+@dataclasses.dataclass
+class ResultTally:
+    """Mutable per-batch yield counters + results.  `bailouts` counts
+    polish batches lost to a device-loop RefineBailout (their ZMWs are
+    tallied as Failure.OTHER)."""
+
+    results: list[ConsensusResult] = dataclasses.field(default_factory=list)
+    counts: dict[Failure, int] = dataclasses.field(
+        default_factory=lambda: {f: 0 for f in Failure})
+    bailouts: int = 0
+
+    def tally(self, failure: Failure) -> None:
+        self.counts[failure] += 1
+
+    @property
+    def total(self) -> int:
+        return sum(self.counts.values())
+
+    def merge(self, other: "ResultTally") -> None:
+        self.results.extend(other.results)
+        for f, c in other.counts.items():
+            self.counts[f] += c
+        self.bailouts += other.bailouts
+
+
+def filter_reads(reads: Sequence[Subread], min_length: int
+                 ) -> list[Subread | None]:
+    """Median-length window filter + full-pass-first priority sort.
+
+    Returns the reads (or None for dropped ones) sorted so that full-pass
+    reads closest to the median length come first.  Parity: reference
+    FilterReads (Consensus.h:224-292): median over full-pass lengths (else
+    the longest read), drop reads >= 2*median, return nothing when the
+    median itself is < min_length."""
+    if not reads:
+        return []
+
+    lengths = [len(r.seq) for r in reads if r.is_full_pass]
+    longest = max(len(r.seq) for r in reads)
+    median = float(np.median(lengths)) if lengths else float(longest)
+    max_len = 2.0 * median
+
+    if median < float(min_length):
+        return []
+
+    def lex_key(r: Subread | None):
+        if r is None:
+            return (-1.0, -1.0)  # sorts last
+        l = float(len(r.seq))  # noqa: E741
+        v = min(l / median, median / l)
+        return (v, 0.0) if r.is_full_pass else (0.0, v)
+
+    # non-ACGT codes and empty reads are unusable (they desync sequence vs
+    # QV lengths downstream, or divide by zero in the sort key)
+    kept: list[Subread | None] = [
+        r if 0 < len(r.seq) < max_len and bool((r.seq < 4).all()) else None
+        for r in reads]
+    kept.sort(key=lex_key, reverse=True)
+    return kept
+
+
+def poa_consensus(reads: Sequence[Subread | None], max_poa_coverage: int
+                  ) -> tuple[np.ndarray, list[int], list[PoaAlignmentSummary]]:
+    """Draft consensus via sparse POA: (consensus codes, per-read keys
+    (-1 = unadded), summaries).  Parity: reference PoaConsensus
+    (Consensus.h:352-390) including minCov = 1 if cov < 5 else
+    (cov+1)/2 - 1."""
+    poa = SparsePoa()
+    keys: list[int] = []
+    cov = 0
+    for r in reads:
+        if r is None:
+            keys.append(-1)
+            continue
+        key = poa.orient_and_add_read(r.seq)
+        keys.append(key)
+        if key >= 0:
+            cov += 1
+            if cov >= max_poa_coverage:
+                break
+    min_cov = 1 if cov < 5 else (cov + 1) // 2 - 1
+    css, summaries = poa.find_consensus(min_cov)
+    return css, keys, summaries
+
+
+@dataclasses.dataclass
+class MappedRead:
+    """A subread clipped to its POA extents, oriented onto the draft
+    (reference ExtractMappedRead, Consensus.h:296-325)."""
+
+    id: str
+    seq: np.ndarray
+    strand: int  # 0 = forward, 1 = reverse-complemented
+    tpl_start: int
+    tpl_end: int
+    is_full_pass: bool
+
+
+def extract_mapped_read(read: Subread, summary: PoaAlignmentSummary,
+                        min_length: int) -> MappedRead | None:
+    rs, re_ = summary.extent_on_read
+    ts, te = summary.extent_on_consensus
+    if rs > re_ or re_ - rs < min_length:
+        return None
+    if summary.reverse_complemented:
+        # extents are in oriented-read (revcomp) coordinates; the scorer
+        # aligns the NATIVE read against the reverse-complement template
+        # window tpl_r[L-te : L-ts], whose native-frame slice is below
+        n = len(read.seq)
+        seq = read.seq[n - re_: n - rs]
+        strand = 1
+    else:
+        seq = read.seq[rs:re_]
+        strand = 0
+    return MappedRead(read.id, seq, strand, ts, te, read.is_full_pass)
+
+
+@dataclasses.dataclass
+class PreparedZmw:
+    """One ZMW past the filter/draft/mapping stages, ready to polish."""
+
+    chunk: Chunk
+    css: np.ndarray
+    mapped: list[MappedRead]
+    n_candidates: int
+    n_unmappable: int
+    prep_ms: float
+
+
+def prepare_chunk(chunk: Chunk, settings: ConsensusSettings
+                  ) -> tuple[Failure | None, PreparedZmw | None]:
+    """Filter -> POA draft -> read mapping (the host stages of the per-ZMW
+    pipeline, reference Consensus.h:396-434)."""
+    t0 = time.monotonic()
+    if float(np.min(chunk.snr)) < settings.min_snr:
+        return Failure.POOR_SNR, None
+
+    reads = filter_reads(chunk.reads, settings.min_length)
+    if not reads or all(r is None for r in reads):
+        return Failure.NO_SUBREADS, None
+
+    css, keys, summaries = poa_consensus(reads, settings.max_poa_coverage)
+    if len(css) < settings.min_length:
+        return Failure.TOO_SHORT, None
+
+    mapped: list[MappedRead] = []
+    n_unmappable = 0
+    for r, k in zip(reads, keys):
+        if r is None or k < 0:
+            continue
+        mr = extract_mapped_read(r, summaries[k], settings.min_length)
+        if mr is None:
+            n_unmappable += 1
+            continue
+        mapped.append(mr)
+
+    n_candidates = sum(1 for k in keys if k >= 0)
+    if not mapped:
+        return Failure.NO_SUBREADS, None
+    prep_ms = (time.monotonic() - t0) * 1e3
+    return None, PreparedZmw(chunk, css, mapped, n_candidates, n_unmappable,
+                             prep_ms)
+
+
+def _read_gates(prep: PreparedZmw, statuses: np.ndarray,
+                settings: ConsensusSettings
+                ) -> tuple[Failure | None, list[int], int]:
+    """Post-AddRead yield gates (reference Consensus.h:437-471): returns
+    (failure or None, per-status counts, usable full passes)."""
+    status_counts = [0] * 5
+    n_passes = 0
+    n_dropped = prep.n_unmappable
+    for i, m in enumerate(prep.mapped):
+        st = int(statuses[i])
+        status_counts[st] += 1
+        if st == ADD_SUCCESS and m.is_full_pass:
+            n_passes += 1
+        elif st != ADD_SUCCESS:
+            n_dropped += 1
+
+    if n_passes < settings.min_passes:
+        return Failure.TOO_FEW_PASSES, status_counts, n_passes
+    if prep.n_candidates > 0 and \
+            n_dropped / prep.n_candidates > settings.max_drop_fraction:
+        return Failure.TOO_MANY_UNUSABLE, status_counts, n_passes
+    return None, status_counts, n_passes
+
+
+def _finish_zmw(prep: PreparedZmw, settings: ConsensusSettings,
+                tpl: np.ndarray, qvs: np.ndarray, refine,
+                zscores: np.ndarray, global_z: float,
+                status_counts: list[int], n_passes: int,
+                elapsed_ms: float) -> tuple[Failure, ConsensusResult | None]:
+    """Post-polish yield gates + result assembly
+    (reference Consensus.h:497-553)."""
+    if not refine.converged:
+        return Failure.NON_CONVERGENT, None
+
+    pred_acc = predicted_accuracy(qvs)
+    if pred_acc < settings.min_predicted_accuracy:
+        return Failure.POOR_QUALITY, None
+
+    sequence = decode_bases(tpl)
+    if len(sequence) != len(qvs):  # invalid bases reached the template
+        return Failure.OTHER, None
+
+    zs = zscores[np.isfinite(zscores)]
+    avg_z = float(zs.mean()) if len(zs) else float("nan")
+    return Failure.SUCCESS, ConsensusResult(
+        id=prep.chunk.id,
+        sequence=sequence,
+        qvs=qvs,
+        num_passes=n_passes,
+        predicted_accuracy=pred_acc,
+        global_zscore=global_z,
+        avg_zscore=avg_z,
+        zscores=zscores.copy(),
+        status_counts=status_counts,
+        mutations_tested=refine.n_tested,
+        mutations_applied=refine.n_applied,
+        snr=np.asarray(prep.chunk.snr),
+        elapsed_ms=elapsed_ms)
+
+
+def _polish_tasks(preps: Sequence[PreparedZmw]) -> list:
+    """The ZmwTask batch of a prepared ZMW sequence."""
+    from pbccs_tpu_torch.parallel.batch import ZmwTask
+
+    return [ZmwTask(p.chunk.id, p.css, np.asarray(p.chunk.snr),
+                    [m.seq for m in p.mapped],
+                    [m.strand for m in p.mapped],
+                    [m.tpl_start for m in p.mapped],
+                    [m.tpl_end for m in p.mapped]) for p in preps]
+
+
+def _polish_batch_arrow(preps: Sequence[PreparedZmw],
+                        settings: ConsensusSettings, device
+                        ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """One lockstep BatchPolisher over `preps`, outcomes ALIGNED with
+    `preps`.  Raises RefineBailout when a device loop bails."""
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher
+
+    t0 = time.monotonic()
+    tasks = _polish_tasks(preps)
+    polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
+                             device=device)
+    gate_info = [_read_gates(p, polisher.statuses[z], settings)
+                 for z, p in enumerate(preps)]
+    # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
+    # wider-band (2x) sub-batch.  Keep-better-width per ZMW: a ZMW polishes
+    # at the wide band iff it MATES more reads there (status !=
+    # ALPHABETAMISMATCH; the reference rebands to achieve alpha/beta
+    # agreement first and applies the z-score gate to whatever mated,
+    # SimpleRecursor.cpp:642-691).  Otherwise it stays in the narrow batch
+    # with its drops.
+    reband = sorted(z for z, p in enumerate(preps)
+                    if (polisher.statuses[z, : len(p.mapped)]
+                        == ADD_ALPHABETAMISMATCH).any())
+    wide = None
+    wide_pick: dict[int, int] = {}
+    if reband:
+        wcfg = dataclasses.replace(
+            polisher.config,
+            banding=dataclasses.replace(polisher.config.banding,
+                                        band_width=2 * polisher._W))
+        wide = BatchPolisher([tasks[z] for z in reband], config=wcfg,
+                             min_zscore=settings.min_zscore,
+                             buckets=(polisher._Imax, polisher._Jmax,
+                                      polisher._R),
+                             device=device)
+        for i, z in enumerate(reband):
+            nr = len(preps[z].mapped)
+            n_narrow = int((polisher.statuses[z, :nr]
+                            != ADD_ALPHABETAMISMATCH).sum())
+            n_wide = int((wide.statuses[i, :nr]
+                          != ADD_ALPHABETAMISMATCH).sum())
+            if n_wide > n_narrow:
+                wide_pick[z] = i
+                gate_info[z] = _read_gates(preps[z], wide.statuses[i],
+                                           settings)
+        _log.debug("band retry: %d ZMW(s) had mating failures at W=%d; %d "
+                   "adopted the 2x band", len(reband), polisher._W,
+                   len(wide_pick))
+    # gate-failed ZMWs take no part in refinement/QV
+    gate_failed = {z for z, g in enumerate(gate_info) if g[0] is not None}
+    skip = gate_failed | set(wide_pick)
+    # z-score statistics describe the draft template (serial-path parity)
+    global_zs = polisher.global_zscores()
+    refine_results = polisher.refine(settings.refine, skip=skip)
+    wide_refine = wide_qvs = wide_gz = None
+    if wide_pick:
+        live_wide = {wi for z, wi in wide_pick.items() if z not in gate_failed}
+        wide_skip = set(range(wide.n_zmws)) - live_wide
+        wide_gz = wide.global_zscores()
+        wide_refine = wide.refine(settings.refine, skip=wide_skip)
+        wide_qvs = wide.consensus_qvs(
+            skip=wide_skip | {i for i, r in enumerate(wide_refine)
+                              if not r.converged})
+    # non-converged ZMWs are discarded by _finish_zmw: no QVs for them
+    skip = skip | {z for z, r in enumerate(refine_results)
+                   if not r.converged}
+    qvs = polisher.consensus_qvs(skip=skip)
+    polish_ms = (time.monotonic() - t0) * 1e3 / max(len(preps), 1)
+
+    outcomes: list[tuple[Failure, ConsensusResult | None]] = []
+    for z, p in enumerate(preps):
+        failure, status_counts, n_passes = gate_info[z]
+        if failure is not None:
+            outcomes.append((failure, None))
+            continue
+        nr = len(p.mapped)
+        if z in wide_pick:
+            i = wide_pick[z]
+            outcomes.append(_finish_zmw(
+                p, settings, wide.tpls[i], wide_qvs[i], wide_refine[i],
+                wide.zscores[i, :nr], wide_gz[i], status_counts, n_passes,
+                p.prep_ms + polish_ms))
+        else:
+            outcomes.append(_finish_zmw(
+                p, settings, polisher.tpls[z], qvs[z], refine_results[z],
+                polisher.zscores[z, :nr], global_zs[z], status_counts,
+                n_passes, p.prep_ms + polish_ms))
+    return outcomes
+
+
+def prepare_batch(chunks: Sequence[Chunk],
+                  settings: ConsensusSettings | None = None
+                  ) -> tuple[ResultTally, list[PreparedZmw]]:
+    """The host half of a batch: every chunk through filter -> POA draft
+    -> mapping, with per-ZMW fault isolation (an exception is logged and
+    tallied as Other, reference Consensus.h:543-548).  Returns (tally of
+    prep-stage outcomes, survivors ready to polish)."""
+    settings = settings or ConsensusSettings()
+    tally = ResultTally()
+    preps: list[PreparedZmw] = []
+    for chunk in chunks:
+        try:
+            failure, prep = prepare_chunk(chunk, settings)
+        except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
+            record_zmw_failure("prepare", e, zmw=chunk.id)
+            tally.tally(Failure.OTHER)
+            continue
+        if failure is not None:
+            tally.tally(failure)
+        else:
+            preps.append(prep)
+    return tally, preps
+
+
+def process_chunks(chunks: Sequence[Chunk],
+                   settings: ConsensusSettings | None = None, *,
+                   device=None) -> ResultTally:
+    """Process a batch of ZMWs: host stages per ZMW, then one lockstep
+    polish of every survivor on `device` (default: the card; raises when
+    there is none; `device="cpu"` runs the kernels' plain versions).
+
+    A device-loop RefineBailout fails the polish batch visibly: each of
+    its ZMWs is logged and tallied as Failure.OTHER, and
+    ResultTally.bailouts counts the batch."""
+    dev = resolve_device(device)
+    settings = settings or ConsensusSettings()
+    tally, preps = prepare_batch(chunks, settings)
+    if not preps:
+        return tally
+    try:
+        outcomes = _polish_batch_arrow(preps, settings, dev)
+    except RefineBailout as e:
+        tally.bailouts += 1
+        for p in preps:
+            record_zmw_failure("polish.refine", e, zmw=p.chunk.id)
+            tally.tally(Failure.OTHER)
+        return tally
+    for failure, result in outcomes:
+        tally.tally(failure)
+        if result is not None:
+            tally.results.append(result)
+    return tally
