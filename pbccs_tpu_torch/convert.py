@@ -16,6 +16,8 @@ import torch
 
 from pbccs_tpu_torch.models.arrow import params
 from pbccs_tpu_torch.models.arrow.scorer import FillState
+from pbccs_tpu_torch.models.quiver import params as qparams
+from pbccs_tpu_torch.models.quiver.recursor import QuiverFeatureArrays
 from pbccs_tpu_torch.ops.fwdbwd import BandedMatrix
 from pbccs_tpu_torch.parallel.device_refine import RefineLoopState
 
@@ -91,3 +93,30 @@ def state_from_numpy(st, device="cpu") -> RefineLoopState:
         history=_t(np.asarray(st.history).astype(np.int64), torch.int64,
                    device),
         hist_n=t("hist_n", i32), it=int(np.asarray(st.it)))
+
+
+def quiver_config_from_jax(cfg) -> qparams.QuiverConfig:
+    """A QuiverConfig-shaped dataclass (the JAX package's, or any object
+    with its field names) -> the port's QuiverConfig, field by field."""
+    qv = cfg.qv_params
+    fields = {f.name: getattr(qv, f.name)
+              for f in dataclasses.fields(qparams.QvModelParams)}
+    fields["merge"] = tuple(float(x) for x in fields["merge"])
+    fields["merge_s"] = tuple(float(x) for x in fields["merge_s"])
+    return qparams.QuiverConfig(
+        qv_params=qparams.QvModelParams(**fields),
+        moves_available=int(cfg.moves_available),
+        banding=qparams.BandingOptions(
+            band_width=int(cfg.banding.band_width),
+            score_diff=float(cfg.banding.score_diff)),
+        fast_score_threshold=float(cfg.fast_score_threshold),
+        add_threshold=float(cfg.add_threshold))
+
+
+def quiver_features_from_numpy(fa, device="cpu") -> QuiverFeatureArrays:
+    """QuiverFeatureArrays of arrays ((Imax,) or (R, Imax), e.g. the JAX
+    package's fetched with np.asarray) -> the port's tensors (int32
+    sequence, float32 tracks)."""
+    return QuiverFeatureArrays(*(
+        _t(getattr(fa, n), torch.int32 if n == "seq" else torch.float32,
+           device) for n in QuiverFeatureArrays._fields))

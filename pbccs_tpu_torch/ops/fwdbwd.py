@@ -15,7 +15,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 class BandedMatrix(NamedTuple):
@@ -79,12 +81,19 @@ def in_band(rows: torch.Tensor, offset, width: int) -> torch.Tensor:
 #: subnormal values fails the alpha/beta mating test in both.  The CUDA
 #: kernels get the same behaviour from nvcc's -ftz=true.
 F32_MIN_NORMAL = float(torch.finfo(torch.float32).tiny)
+#: the largest float32 subnormal: threshold(x, it, 0) keeps x iff
+#: x >= F32_MIN_NORMAL
+_F32_MAX_SUBNORMAL = float(np.nextafter(np.float32(F32_MIN_NORMAL),
+                                        np.float32(0)))
 
 
 def ftz(x: torch.Tensor) -> torch.Tensor:
-    """x with float32 subnormals flushed to zero (one rounding step of
-    the kernels' flush-to-zero arithmetic)."""
-    return torch.where(x.abs() < F32_MIN_NORMAL, 0.0, x)
+    """x with float32 subnormals flushed to +0 (one rounding step of the
+    kernels' flush-to-zero arithmetic); NaN stays NaN.  Two thresholds
+    and a difference give the bits of where(|x| < min normal, 0, x) at a
+    fraction of its cost on the CPU."""
+    return (F.threshold(x, _F32_MAX_SUBNORMAL, 0.0)
+            - F.threshold(-x, _F32_MAX_SUBNORMAL, 0.0))
 
 
 def _affine_scan_circ(b: torch.Tensor, c: torch.Tensor,

@@ -199,22 +199,20 @@ def _backward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
 # --------------------------------------------------------------------------
 
 
-def fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward: bool):
-    """The column scan in plain torch, a loop over columns with the
-    kernel's exact association: per column b = cm*roll(prev) + cd*prev
-    (+ seed at seedcol), the circular Hillis-Steele scan, a divide by the
-    column max where mask is set, and log(scale); every product, sum and
-    quotient flushed to zero below F32_MIN_NORMAL, as the kernel's
-    -ftz=true arithmetic does.  Returns vals (R, nc, W) and log-scales
-    (R, nc); column k is stored at k (forward) or nc-1-k (backward)."""
+def _scan_plain(cm, cd, cc, cg, mask, seed, seedcol, backward: bool):
+    """The column scan of K1 (cg None) and K2 in plain torch."""
     R, nc, W = cm.shape
     t = -1 if backward else 1
     vals = torch.empty_like(cm)
     ls = torch.empty(R, nc, dtype=cm.dtype, device=cm.device)
     prev = torch.zeros(R, W, dtype=cm.dtype, device=cm.device)
+    prev2 = torch.zeros_like(prev)
+    sprev = torch.ones(R, 1, dtype=cm.dtype, device=cm.device)
     at_seed = seedcol[:, None].long() == torch.arange(nc, device=cm.device)
     for k in range(nc):
         b = ftz(ftz(cm[:, k] * circ_roll(prev, t)) + ftz(cd[:, k] * prev))
+        if cg is not None:
+            b = ftz(b + ftz(cg[:, k] * ftz(circ_roll(prev2, t) / sprev)))
         b = torch.where(at_seed[:, k:k + 1], ftz(b + seed), b)
         c = cc[:, k]
         d = 1
@@ -230,8 +228,29 @@ def fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward: bool):
         kout = nc - 1 - k if backward else k
         vals[:, kout] = col
         ls[:, kout] = torch.where(do_scale, torch.log(scale), 0.0)[:, 0]
-        prev = col
+        prev2, sprev, prev = prev, scale, col
     return vals, ls
+
+
+def fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward: bool):
+    """The K1 column scan in plain torch, a loop over columns with the
+    kernel's exact association: per column b = cm*roll(prev) + cd*prev
+    (+ seed at seedcol), the circular Hillis-Steele scan, a divide by the
+    column max where mask is set, and log(scale); every product, sum and
+    quotient flushed to zero below F32_MIN_NORMAL, as the kernel's
+    -ftz=true arithmetic does.  Returns vals (R, nc, W) and log-scales
+    (R, nc); column k is stored at k (forward) or nc-1-k (backward)."""
+    return _scan_plain(cm, cd, cc, None, mask, seed, seedcol, backward)
+
+
+def fill_scan_merge_plain(cm, cd, cc, cg, mask, seed, seedcol,
+                          backward: bool):
+    """The K2 column scan in plain torch: fill_scan_plain's column plus
+    the Merge term b = b + cg * (roll(prev2) / sprev) before the seed,
+    prev2 the column two back and sprev the scale applied to the
+    previous column (0 and 1 at the first column), each quotient,
+    product and sum flushed to zero as in the kernel."""
+    return _scan_plain(cm, cd, cc, cg, mask, seed, seedcol, backward)
 
 
 def _check_f32(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
@@ -245,13 +264,42 @@ def _check_f32(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _bind_fill(lib: ctypes.CDLL):
-    fn = lib.pbccs_fill_scan
+def _bind(lib: ctypes.CDLL, name: str, n_ptr: int):
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(entry: str, what: str, coeffs, mask, seed, seedcol,
+            backward: bool):
+    """Check the scan's operands and launch one csrc/fill_scan.cu entry on
+    the current stream; coeffs are the (R, nc, W) coefficient planes."""
+    cm = coeffs[0]
+    R, nc, W = cm.shape
+    dev = cm.device
+    for name, x in zip(("cm", "cd", "cc", "cg"), coeffs):
+        _check_f32(name, x, (R, nc, W), dev)
+    _check_f32("mask", mask, (R, nc), dev)
+    _check_f32("seed", seed, (R, W), dev)
+    if seedcol.device != dev or seedcol.dtype != torch.int32 \
+            or tuple(seedcol.shape) != (R,) or not seedcol.is_contiguous():
+        raise ValueError("seedcol must be a contiguous (R,) int32 tensor "
+                         f"on {dev}")
+    if not 2 <= W <= 1024:
+        raise ValueError(f"{what}: band width {W} outside [2, 1024]")
+    vals = torch.empty_like(cm)
+    ls = torch.empty(R, nc, dtype=torch.float32, device=dev)
+    fn = _bind(cuda_lib.load("fill_scan"), entry, len(coeffs) + 5)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(*(x.data_ptr() for x in coeffs), mask.data_ptr(),
+                 seed.data_ptr(), seedcol.data_ptr(), vals.data_ptr(),
+                 ls.data_ptr(), R, nc, W, int(backward), stream)
+    cuda_lib.check(err, what)
+    return vals, ls
 
 
 def fill_scan(cm, cd, cc, mask, seed, seedcol, backward: bool):
@@ -264,33 +312,32 @@ def fill_scan(cm, cd, cc, mask, seed, seedcol, backward: bool):
         return fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward)
     if cm.device.type != "cuda":
         raise ValueError(f"fill_scan: unsupported device {cm.device}")
-    R, nc, W = cm.shape
-    dev = cm.device
-    for name, x in (("cm", cm), ("cd", cd), ("cc", cc)):
-        _check_f32(name, x, (R, nc, W), dev)
-    _check_f32("mask", mask, (R, nc), dev)
-    _check_f32("seed", seed, (R, W), dev)
-    if seedcol.device != dev or seedcol.dtype != torch.int32 \
-            or tuple(seedcol.shape) != (R,) or not seedcol.is_contiguous():
-        raise ValueError("seedcol must be a contiguous (R,) int32 tensor "
-                         f"on {dev}")
-    if not 2 <= W <= 1024:
-        raise ValueError(f"fill_scan: band width {W} outside [2, 1024]")
-    vals = torch.empty_like(cm)
-    ls = torch.empty(R, nc, dtype=torch.float32, device=dev)
-    fn = _bind_fill(cuda_lib.load("fill_scan"))
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(cm.data_ptr(), cd.data_ptr(), cc.data_ptr(),
-                 mask.data_ptr(), seed.data_ptr(), seedcol.data_ptr(),
-                 vals.data_ptr(), ls.data_ptr(), R, nc, W, int(backward),
-                 stream)
-    cuda_lib.check(err, "fill_scan")
+    out = _launch("pbccs_fill_scan", "fill_scan", (cm, cd, cc), mask, seed,
+                  seedcol, backward)
     fill_scan.launches += 1
-    return vals, ls
+    return out
 
 
 fill_scan.launches = 0
+
+
+def fill_scan_merge(cm, cd, cc, cg, mask, seed, seedcol, backward: bool):
+    """The K2 column scan (`_run_fill` with cg, the Quiver fills):
+    fill_scan's operands plus the Merge coefficients cg (R, nc, W).  CPU
+    tensors run fill_scan_merge_plain; CUDA tensors launch the merge
+    entry of csrc/fill_scan.cu on the current stream (no fallback)."""
+    if cm.device.type == "cpu":
+        return fill_scan_merge_plain(cm, cd, cc, cg, mask, seed, seedcol,
+                                     backward)
+    if cm.device.type != "cuda":
+        raise ValueError(f"fill_scan_merge: unsupported device {cm.device}")
+    out = _launch("pbccs_fill_scan_merge", "fill_scan_merge",
+                  (cm, cd, cc, cg), mask, seed, seedcol, backward)
+    fill_scan_merge.launches += 1
+    return out
+
+
+fill_scan_merge.launches = 0
 
 
 # --------------------------------------------------------------------------

@@ -10,8 +10,9 @@ trim); converged ZMWs drop out of the mutation workload.
 
 Left out of the port (TPU or fleet devices): the mesh, the roofline
 plane, the flight recorder, the straggler continuation and prebake
-adoption.  The JAX package's host refinement loop is not ported either:
-where the device loop bails to it, the port raises RefineBailout."""
+adoption.  The JAX package's host refinement loop is not ported: the
+device loop handles the two cases the JAX device loop bails to it for
+(tiny read windows, a template outgrowing its bucket) itself."""
 
 from __future__ import annotations
 
@@ -406,8 +407,8 @@ class BatchPolisher:
         QV sweep on the final templates (served later by consensus_qvs).
 
         ZMW indices in `skip` take no part (their RefineResult stays
-        non-converged).  Raises dr.RefineBailout where the JAX package
-        would fall back to its host loop."""
+        non-converged).  A template that outgrows the bucket re-buckets
+        the batch (self._Jmax grows)."""
         opts = opts or RefineOptions()
         st = self._loop_state(skip)
         dr.run_refine_loop(
@@ -416,11 +417,11 @@ class BatchPolisher:
             max_iterations=opts.max_iterations,
             separation=opts.mutation_separation,
             neighborhood=opts.mutation_neighborhood,
-            min_fast_edge=MIN_FAST_EDGE_WLEN,
-            guided_passes=guided_fill_passes(self._Jmax))
+            min_fast_edge=MIN_FAST_EDGE_WLEN)
         qv = self._qv_sweep(st, skip)
 
         self._state = st                 # the loop's final device state
+        self._Jmax = st.tpl.shape[1]
         h = torch.cat([
             torch.stack([st.tlens, st.converged.to(torch.int32),
                          st.iterations, st.n_tested, st.n_applied], 1),

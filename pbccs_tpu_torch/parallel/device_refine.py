@@ -6,7 +6,7 @@ on the device: enumerate the position-major 9-slot candidate grid, score
 it (interior slots by the K3 kernel, edge slots by the window-frame edge
 programs), pick a greedy well-separated subset of the favorable
 mutations, splice the templates, and rebuild the fills (K1).  The host
-reads a few flags per round (loop end, bail-outs) and fetches the results
+reads a few flags per round (loop end, re-buckets) and fetches the results
 once at the end.  The JAX package's lax.while_loop / lax.cond become a
 Python loop over device tensors.
 
@@ -18,11 +18,13 @@ Parity targets (held by the port's tests against pbccs_tpu):
   * splice_templates: mutations.apply_mutations +
     target_to_query_positions (mtp[j] = j - dels(<j) + ins(<=j)).
 
-Where the JAX loop bails to its host loop (a tiny read window whose edge
-slots the window-frame program cannot score, or a template outgrowing
-its bucket) this loop raises RefineBailout; the host loop is not ported.
-The JAX loop's straggler early exit (a TPU compile-menu device) is not
-ported either: per-ZMW results do not depend on it."""
+Where the JAX device loop bails to its host loop, this loop handles the
+case itself, as the host loop does: edge slots in a read window too
+short for the window-frame program are scored by full refills of the
+mutated window (K1), and a template that outgrows its bucket re-buckets
+(batch._jmax_bucket) and the loop carries on at the larger Jmax.  The
+JAX loop's straggler early exit (a TPU compile-menu device) is not
+ported: per-ZMW results do not depend on it."""
 
 from __future__ import annotations
 
@@ -42,12 +44,6 @@ N_SLOTS = 9
 HISTORY = 48     # template-hash ring depth (cycle detection)
 _HASH_MULT = 2654435761  # Knuth multiplicative constant (uint32)
 _U32 = 0xFFFFFFFF
-
-
-class RefineBailout(RuntimeError):
-    """The device loop met a case the JAX package hands to its host loop:
-    a tiny read window (edge slots not scorable by the window-frame
-    program) or a template that outgrew its bucket."""
 
 
 # --------------------------------------------------------------------------
@@ -286,19 +282,55 @@ def slot_geometry(ts, te, strand, ms, me, is_ins):
     return overlap, interior, wlen
 
 
+def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, ptrans,
+                  strands, tstarts, tends, end, width: int) -> torch.Tensor:
+    """(E,) absolute LLs of (z, r, slot) pairs by a full banded refill
+    (K1) of each read's mutated window: the JAX host loop's tiny-window
+    fallback (batch._batch_edge -> scorer._score_edge).  The template-
+    frame slot maps to its window-frame slot (reverse reads: position
+    te - end, base complemented), whose patch rows come from the window
+    frame's patch grid `ptrans` (Z*R, Jm, 9, 2, 4)."""
+    from pbccs_tpu_torch.ops.dense_score_cuda import _REV_PERM
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import (forward_batch,
+                                                 forward_loglik_batch)
+    from pbccs_tpu_torch.ops.mutation_score import (make_window_patches,
+                                                    mutated_windows_per_pair)
+
+    ez, er, em = pairs
+    R = strands.shape[1]
+    zr = ez * R + er
+    dev = strands.device
+    fwd = strands[ez, er] == 0
+    ts, te = tstarts[ez, er], tends[ez, er]
+    k_t = em % N_SLOTS
+    k_w = torch.where(fwd, k_t, torch.as_tensor(_REV_PERM, device=dev)[k_t])
+    p = torch.where(fwd, em // N_SLOTS - ts, te - end[em])
+    wt_e, wtr_e, wl_e = f_wt[zr], f_wtr[zr], f_wl[zr]
+    mt = torch.as_tensor(_SLOT_TYPES, device=dev)[k_w]
+    nb = torch.as_tensor(_SLOT_BASES, device=dev)[k_w]
+    patch = make_window_patches(wt_e, ptrans[zr, p, k_w], p, mt, nb)
+    bases, trans, new_len = mutated_windows_per_pair(wt_e, wtr_e, wl_e, p, mt,
+                                                     patch)
+    jcut = int(new_len.max()) + 1          # columns past every window
+    alpha = forward_batch(flat_reads[zr], flat_rlens[zr], bases[:, :jcut],
+                          trans[:, :jcut], new_len, width)
+    return forward_loglik_batch(alpha, flat_rlens[zr], new_len)
+
+
 def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
                     real_rows, start, end, mtype, base, valid, *,
-                    min_fast_edge: int):
+                    min_fast_edge: int) -> torch.Tensor:
     """(Z, M) slot-grid totals, summed over active reads of
-    (mutated LL - baseline), plus the tiny-window flag.
+    (mutated LL - baseline).
 
     Interior scores come from the K3 kernel over every (read, 64-position
     block) that holds a valid candidate; edge slots sit at static
     window-frame rows ({0,1,2} and {J-2,J-1,J}) and come from the
     window-frame edge program, spliced into the kernel grid before the
     orientation mapping, so the whole grid maps and reduces in one pass.
-    The flag is set when an edge slot lies in a window shorter than
-    `min_fast_edge` (the edge program's two regimes would overlap)."""
+    Edge slots of windows shorter than `min_fast_edge` (where the edge
+    program's two regimes would overlap) take full-refill LLs instead
+    (_refill_pairs), as the JAX host loop's fallback pairs do."""
     from pbccs_tpu_torch.ops.dense_score_cuda import (
         PB, band_read_windows, dense_interior_scores_batch,
         dense_patch_grids, edge_window_scores_batch, splice_edge_rows,
@@ -313,7 +345,8 @@ def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
         start[None, None, :], end[None, None, :],
         (mtype == INSERTION)[None, None, :])
     geo = valid[:, None, :] & overlap & real_rows[:, :, None]
-    fb = bool((geo & ~interior & (wlen < min_fast_edge)).any())
+    score_mask = geo & st.active[:, :, None]
+    fb = score_mask & ~interior & (wlen < min_fast_edge)
 
     flat = lambda a: a.reshape((Z * R,) + a.shape[2:])  # noqa: E731
     tables = flat(table[:, None].expand((Z, R) + table.shape[1:]))
@@ -356,10 +389,13 @@ def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
     mapped = window_grid_to_template(grid_w, flat(strands),
                                      flat(st.tstarts), flat(st.tends),
                                      jmax).reshape(Z, R, M)
-    score_mask = geo & st.active[:, :, None]
-    out = torch.where(score_mask, mapped - st.baselines[:, :, None],
-                      0.0).sum(1)
-    return out, fb
+    if bool(fb.any()):
+        pairs = torch.nonzero(fb, as_tuple=True)
+        mapped[pairs] = _refill_pairs(pairs, f_reads, f_rlens, f_wt, f_wtr,
+                                      f_wl, ptrans, strands, st.tstarts,
+                                      st.tends, end, W)
+    return torch.where(score_mask, mapped - st.baselines[:, :, None],
+                       0.0).sum(1)
 
 
 def qv_from_slot_grid(totals: torch.Tensor, valid: torch.Tensor
@@ -388,12 +424,9 @@ def run_qv_ints(st: RefineLoopState, reads, rlens, strands, table,
     jmax = st.tpl.shape[1]
     start, end, mtype, base = slot_grid(jmax, reads.device)
     valid = slot_candidates(st.tpl, st.tlens) & ~skip_mask[:, None]
-    totals, fb = score_slot_grid(st, reads, rlens, strands, table,
-                                 real_rows, start, end, mtype, base, valid,
-                                 min_fast_edge=min_fast_edge)
-    if fb:
-        raise RefineBailout("QV sweep: an edge slot lies in a read window "
-                            f"shorter than {min_fast_edge}")
+    totals = score_slot_grid(st, reads, rlens, strands, table, real_rows,
+                             start, end, mtype, base, valid,
+                             min_fast_edge=min_fast_edge)
     return qv_from_slot_grid(totals, valid)
 
 
@@ -403,14 +436,17 @@ def run_qv_ints(st: RefineLoopState, reads, rlens, strands, table,
 
 
 def rebuild(st: RefineLoopState, reads, rlens, strands, table, *,
-            width: int, guided_passes: int) -> None:
+            width: int) -> None:
     """Rebuild windows and fills against st's templates/windows in place,
-    and drop reads whose new fills no longer mate from st.active."""
+    and drop reads whose new fills no longer mate from st.active.  The
+    guided-refill schedule follows the state's bucket, as the JAX host
+    loop's _setup does after a re-bucket."""
+    from pbccs_tpu_torch.models.arrow.scorer import guided_fill_passes
     from pbccs_tpu_torch.parallel import batch as batchmod
 
     s = batchmod._batch_setup(st.tpl, st.tlens, table, reads, rlens,
                               strands, st.tstarts, st.tends, width,
-                              guided_passes)
+                              guided_fill_passes(st.tpl.shape[1]))
     st.win_tpl, st.win_trans, st.wlens = s.win_tpl, s.win_trans, s.wlens
     st.alpha, st.beta = s.fill.alpha, s.fill.beta
     st.a_prefix, st.b_suffix = s.fill.apre, s.fill.bsuf
@@ -420,20 +456,41 @@ def rebuild(st: RefineLoopState, reads, rlens, strands, table, *,
                                         rlens, st.tstarts, st.tends)
 
 
+def _pad_positions(x: torch.Tensor, jmax: int, jnew: int, fill):
+    """Pad a (Z, jmax) position plane or a (Z, jmax * 9) slot plane to
+    jnew positions with `fill`."""
+    Z = x.shape[0]
+    per = x.shape[1] // jmax
+    pad = torch.full((Z, jnew - jmax, per), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x.reshape(Z, jmax, per), pad], 1).reshape(Z, -1)
+
+
+def _splice_len(tlens, taken, mtype) -> torch.Tensor:
+    """(Z,) template lengths after applying `taken` (unclamped)."""
+    ins = (taken & (mtype == INSERTION)).sum(1)
+    dels = (taken & (mtype == DELETION)).sum(1)
+    return tlens + (ins - dels).to(tlens.dtype)
+
+
 def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
                     real_rows, *, width: int, max_iterations: int,
-                    separation: int, neighborhood: int, min_fast_edge: int,
-                    guided_passes: int = 0) -> RefineLoopState:
+                    separation: int, neighborhood: int,
+                    min_fast_edge: int) -> RefineLoopState:
     """Up to max_iterations rounds of enumerate -> score -> select ->
     splice -> rebuild over the batch, updating `st` in place.
 
     Semantics mirror the reference AbstractRefineConsensus
-    (Consensus-inl.hpp:160-245) as the JAX package's device loop does:
+    (Consensus-inl.hpp:160-245) as the JAX package's loops do:
     favorable = score above the f32 noise floor (refine.
     favorability_threshold, per round), greedy well-separated subset, a
     multi-mutation subset whose result was already visited (48-deep hash
     ring) trimmed to its best single mutation, and rounds > 0 restricted
-    to the neighbourhood of the previous round's favorable mutations."""
+    to the neighbourhood of the previous round's favorable mutations.
+    A round whose applied templates no longer fit the bucket (length + 2
+    > Jmax) re-buckets to batch._jmax_bucket of the longest template and
+    rebuilds the state there (the JAX host loop's apply_mutations); the
+    final state may have a larger Jmax than the initial one."""
     from pbccs_tpu_torch.parallel import batch as batchmod
 
     Z, R = reads.shape[:2]
@@ -448,12 +505,9 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
             & ~st.done[:, None]
 
         # 2. scores
-        totals, fb = score_slot_grid(st, reads, rlens, strands, table,
-                                     real_rows, start, end, mtype, base,
-                                     valid, min_fast_edge=min_fast_edge)
-        if fb:
-            raise RefineBailout("an edge slot lies in a read window shorter "
-                                f"than {min_fast_edge} (round {st.it})")
+        totals = score_slot_grid(st, reads, rlens, strands, table,
+                                 real_rows, start, end, mtype, base, valid,
+                                 min_fast_edge=min_fast_edge)
         scores = torch.where(valid, totals, -float("inf"))
         eps_z = batchmod._favorability_eps(st.baselines, st.active)
         favorable = valid & (scores > eps_z[:, None])
@@ -466,11 +520,20 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
         st.converged = st.converged | newly_converged
         done_now = st.done | newly_converged
 
-        # 3. greedy selection + cycle trim
+        # 3. greedy selection + cycle trim (the candidate template is
+        # spliced wide enough to hold every insertion, so its hash is
+        # exact even when it outgrows the bucket)
         taken = greedy_well_separated_posmajor(
             scores, favorable & ~done_now[:, None], separation, jmax)
-        nxt_tpl, nxt_tlen, _ = splice_templates(st.tpl, st.tlens, start,
-                                                mtype, base, taken)
+        jw = max(jmax, int(_splice_len(st.tlens, taken, mtype).max()))
+        if jw > jmax:
+            w_start, _, w_mtype, w_base = slot_grid(jw, dev)
+            nxt_tpl, nxt_tlen, _ = splice_templates(
+                _pad_positions(st.tpl, jmax, jw, 4), st.tlens, w_start,
+                w_mtype, w_base, _pad_positions(taken, jmax, jw, False))
+        else:
+            nxt_tpl, nxt_tlen, _ = splice_templates(st.tpl, st.tlens, start,
+                                                    mtype, base, taken)
         nxt_hash = template_hash(nxt_tpl, nxt_tlen)
         seen = ((st.history == nxt_hash[:, None])
                 & (torch.arange(H, device=dev)[None, :]
@@ -490,12 +553,19 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
         st.history = torch.where(pushing[:, None], pushed, st.history)
         st.hist_n = st.hist_n + pushing.to(torch.int32)
 
-        # 5. apply
+        # 5. re-bucket when an applied template outgrows Jmax, then apply
+        new_len = torch.where(pushing, _splice_len(st.tlens, taken, mtype),
+                              st.tlens)
+        if int(new_len.max()) + 2 > jmax:
+            jnew = batchmod._jmax_bucket(int(new_len.max()))
+            st.tpl = _pad_positions(st.tpl, jmax, jnew, 4)
+            st.allowed = _pad_positions(st.allowed, jmax, jnew, True)
+            taken = _pad_positions(taken, jmax, jnew, False)
+            favorable = _pad_positions(favorable, jmax, jnew, False)
+            jmax = jnew
+            start, end, mtype, base = slot_grid(jmax, dev)
         new_tpl, new_tlen, mtp = splice_templates(st.tpl, st.tlens, start,
                                                   mtype, base, taken)
-        if bool(((torch.where(pushing, new_tlen, 0) + 2) > jmax).any()):
-            raise RefineBailout(f"a template outgrew its bucket of {jmax} "
-                                f"columns (round {st.it})")
         old_tlen = st.tlens.long()[:, None]
         ts_new = mtp.gather(1, st.tstarts.long().clamp(min=0).minimum(old_tlen))
         te_new = mtp.gather(1, st.tends.long().clamp(min=0).minimum(old_tlen))
@@ -509,8 +579,7 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
 
         # 6. rebuild fills (skipped when no ZMW applied anything)
         if bool(pushing.any()):
-            rebuild(st, reads, rlens, strands, table, width=width,
-                    guided_passes=guided_passes)
+            rebuild(st, reads, rlens, strands, table, width=width)
 
         # 7. next round's nearby filter from this round's favorables
         allowed = nearby_allowed(start[None, :], end[None, :], favorable,

@@ -1,17 +1,17 @@
-"""Per-ZMW consensus pipeline: filter -> POA draft -> Arrow polish -> QV.
+"""Per-ZMW consensus pipeline: filter -> POA draft -> polish -> QV.
 
-Port of pbccs_tpu.pipeline's batch path (reference
-include/pacbio/ccs/Consensus.h:224-555): the host stages (filter, POA
-draft, read mapping) run per ZMW on the CPU, then every surviving ZMW of
-the batch polishes in one lockstep BatchPolisher on the device, with the
-2x band retry for ZMWs whose reads failed the alpha/beta mating test.
-Yield accounting keeps the reference's result categories
-(Consensus.h:155-208, ccs.cpp:233-262).
+Port of pbccs_tpu.pipeline (reference include/pacbio/ccs/Consensus.h:
+224-555).  The host stages (filter, POA draft, read mapping) run per ZMW
+on the CPU.  With the Arrow model (the default) every surviving ZMW of
+the batch then polishes in one lockstep BatchPolisher on the device,
+with the 2x band retry for ZMWs whose reads failed the alpha/beta mating
+test; with the Quiver model (ConsensusSettings.model = "quiver") each
+ZMW polishes on its own through QuiverMultiReadScorer and the generic
+refine loop, with per-ZMW fault isolation.  Yield accounting keeps the
+reference's result categories (Consensus.h:155-208, ccs.cpp:233-262).
 
 Not ported: quarantine bisection, the watchdog, the memory governor and
-the serial per-ZMW path.  A batch whose device loop bails
-(device_refine.RefineBailout) is recorded as Failure.OTHER for each of
-its ZMWs, logged, and counted in ResultTally.bailouts."""
+the serial per-ZMW Arrow polish (polish_prepared raises for it)."""
 
 from __future__ import annotations
 
@@ -26,11 +26,12 @@ import numpy as np
 
 from pbccs_tpu_torch.device import resolve_device
 from pbccs_tpu_torch.models.arrow.params import decode_bases, encode_bases
-from pbccs_tpu_torch.models.arrow.refine import RefineOptions, \
-    predicted_accuracy
+from pbccs_tpu_torch.models.arrow.refine import (RefineOptions,
+                                                 consensus_qvs,
+                                                 predicted_accuracy,
+                                                 refine_consensus)
 from pbccs_tpu_torch.models.arrow.scorer import (ADD_ALPHABETAMISMATCH,
                                                  ADD_SUCCESS)
-from pbccs_tpu_torch.parallel.device_refine import RefineBailout
 from pbccs_tpu_torch.poa.sparse import PoaAlignmentSummary, SparsePoa
 
 _log = logging.getLogger(__name__)
@@ -64,6 +65,11 @@ class ConsensusSettings:
     min_zscore: float = -5.0
     max_drop_fraction: float = 0.34
     refine: RefineOptions = dataclasses.field(default_factory=RefineOptions)
+    # polish model family: "arrow" (the ccs default) or "quiver" (the
+    # QV-feature model; the reference carries both behind one templated
+    # refine/QV implementation, Consensus.hpp:64-79).  Subreads carry no
+    # QV tracks here, so Quiver polishes with flat default tracks.
+    model: str = "arrow"
 
 
 @dataclasses.dataclass
@@ -134,14 +140,11 @@ class ConsensusResult:
 
 @dataclasses.dataclass
 class ResultTally:
-    """Mutable per-batch yield counters + results.  `bailouts` counts
-    polish batches lost to a device-loop RefineBailout (their ZMWs are
-    tallied as Failure.OTHER)."""
+    """Mutable per-batch yield counters + results."""
 
     results: list[ConsensusResult] = dataclasses.field(default_factory=list)
     counts: dict[Failure, int] = dataclasses.field(
         default_factory=lambda: {f: 0 for f in Failure})
-    bailouts: int = 0
 
     def tally(self, failure: Failure) -> None:
         self.counts[failure] += 1
@@ -154,7 +157,6 @@ class ResultTally:
         self.results.extend(other.results)
         for f, c in other.counts.items():
             self.counts[f] += c
-        self.bailouts += other.bailouts
 
 
 def filter_reads(reads: Sequence[Subread], min_length: int
@@ -356,6 +358,60 @@ def _finish_zmw(prep: PreparedZmw, settings: ConsensusSettings,
         elapsed_ms=elapsed_ms)
 
 
+def polish_prepared_quiver(prep: PreparedZmw, settings: ConsensusSettings,
+                           device) -> tuple[Failure, ConsensusResult | None]:
+    """Quiver-model polish of a prepared ZMW: gates -> refine -> QVs ->
+    finish, through the generic refine loop and QV sweep over
+    QuiverMultiReadScorer.  Quiver has no closed-form Z-score moments (an
+    Arrow construct), so the z-score fields are NaN and the z-score gate
+    is vacuous, as in the JAX package."""
+    from pbccs_tpu_torch.models.quiver.features import flat_default_features
+    from pbccs_tpu_torch.models.quiver.scorer import QuiverMultiReadScorer
+
+    t0 = time.monotonic()
+    scorer = QuiverMultiReadScorer(
+        prep.css, [flat_default_features(m.seq) for m in prep.mapped],
+        [m.strand for m in prep.mapped], [m.tpl_start for m in prep.mapped],
+        [m.tpl_end for m in prep.mapped], device=device)
+
+    failure, status_counts, n_passes = _read_gates(prep, scorer.statuses,
+                                                   settings)
+    if failure is not None:
+        return failure, None
+
+    refine = refine_consensus(scorer, settings.refine)
+    if not refine.converged:
+        return Failure.NON_CONVERGENT, None
+    qvs = consensus_qvs(scorer)
+    elapsed_ms = prep.prep_ms + (time.monotonic() - t0) * 1e3
+    nan_zs = np.full(scorer.n_reads, np.nan)
+    return _finish_zmw(prep, settings, scorer.tpl, qvs, refine, nan_zs,
+                       float("nan"), status_counts, n_passes, elapsed_ms)
+
+
+def polish_prepared(prep: PreparedZmw, settings: ConsensusSettings, *,
+                    device=None) -> tuple[Failure, ConsensusResult | None]:
+    """The serial polish half of the per-ZMW pipeline.  Only the Quiver
+    model has a serial polish in the port; Arrow ZMWs polish in
+    lockstep batches (process_chunks)."""
+    if settings.model == "quiver":
+        return polish_prepared_quiver(prep, settings,
+                                      resolve_device(device))
+    raise NotImplementedError(
+        "the serial per-ZMW Arrow polish is not ported; process_chunks "
+        "polishes Arrow ZMWs in lockstep batches")
+
+
+def process_chunk(chunk: Chunk, settings: ConsensusSettings | None = None, *,
+                  device=None) -> tuple[Failure, ConsensusResult | None]:
+    """The per-ZMW pipeline (reference Consensus, Consensus.h:396-553)."""
+    settings = settings or ConsensusSettings()
+    failure, prep = prepare_chunk(chunk, settings)
+    if failure is not None:
+        return failure, None
+    return polish_prepared(prep, settings, device=device)
+
+
 def _polish_tasks(preps: Sequence[PreparedZmw]) -> list:
     """The ZmwTask batch of a prepared ZMW sequence."""
     from pbccs_tpu_torch.parallel.batch import ZmwTask
@@ -371,7 +427,7 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
                         settings: ConsensusSettings, device
                         ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One lockstep BatchPolisher over `preps`, outcomes ALIGNED with
-    `preps`.  Raises RefineBailout when a device loop bails."""
+    `preps`."""
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
 
     t0 = time.monotonic()
@@ -484,27 +540,32 @@ def prepare_batch(chunks: Sequence[Chunk],
 def process_chunks(chunks: Sequence[Chunk],
                    settings: ConsensusSettings | None = None, *,
                    device=None) -> ResultTally:
-    """Process a batch of ZMWs: host stages per ZMW, then one lockstep
-    polish of every survivor on `device` (default: the card; raises when
+    """Process a batch of ZMWs on `device` (default: the card; raises when
     there is none; `device="cpu"` runs the kernels' plain versions).
 
-    A device-loop RefineBailout fails the polish batch visibly: each of
-    its ZMWs is logged and tallied as Failure.OTHER, and
-    ResultTally.bailouts counts the batch."""
+    Arrow: host stages per ZMW, then one lockstep polish of every
+    survivor.  Quiver: each ZMW through the per-ZMW pipeline; an
+    exception is logged and tallied as Other and the batch continues
+    (reference Consensus.h:543-548)."""
     dev = resolve_device(device)
     settings = settings or ConsensusSettings()
+    if settings.model == "quiver":
+        tally = ResultTally()
+        for chunk in chunks:
+            try:
+                failure, result = process_chunk(chunk, settings, device=dev)
+            except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
+                record_zmw_failure("zmw", e, zmw=chunk.id)
+                tally.tally(Failure.OTHER)
+                continue
+            tally.tally(failure)
+            if result is not None:
+                tally.results.append(result)
+        return tally
     tally, preps = prepare_batch(chunks, settings)
     if not preps:
         return tally
-    try:
-        outcomes = _polish_batch_arrow(preps, settings, dev)
-    except RefineBailout as e:
-        tally.bailouts += 1
-        for p in preps:
-            record_zmw_failure("polish.refine", e, zmw=p.chunk.id)
-            tally.tally(Failure.OTHER)
-        return tally
-    for failure, result in outcomes:
+    for failure, result in _polish_batch_arrow(preps, settings, dev):
         tally.tally(failure)
         if result is not None:
             tally.results.append(result)

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where the time of the port's main path goes, on one NVIDIA card.
 
-    python3 pbccs_tpu_torch/tools/profile_main_path.py
+    python3 pbccs_tpu_torch/tools/profile_main_path.py           # Arrow
+    python3 pbccs_tpu_torch/tools/profile_main_path.py quiver    # Quiver
 
 Runs chip_smoke.py's workload (2 kb simulated ZMWs, 3-10 passes, the same
-numpy seed, batches of 32) through the two halves of process_chunks --
-the host draft stage (pipeline.prepare_batch) and the device polish
-(pipeline._polish_batch_arrow) -- once to warm up, then once under
-torch.profiler with CPU and CUDA activities.  Prints one JSON line:
+numpy seed) through the two halves of process_chunks -- the host draft
+stage (pipeline.prepare_batch) and the device polish -- once to warm up,
+then once under torch.profiler with CPU and CUDA activities.  Arrow
+polishes the 64 ZMWs in batches of 32 (pipeline._polish_batch_arrow);
+Quiver polishes ZMW by ZMW (pipeline.polish_prepared), warming up on
+the draw's second ZMW and profiling its first.  Prints one JSON line:
 host-draft and polish wall seconds, device busy time (the union of CUDA
 kernel intervals) and the device's idle share of the polish wall time,
 the number of kernel launches, and CUDA time grouped by kernel
@@ -62,14 +65,17 @@ def kernel_group(name: str) -> str:
 
 def run(chunks, settings, batch: int):
     """Host draft and device polish of every batch; returns seconds."""
+    dev = torch.device("cuda")
     t_draft = t_polish = 0.0
     for lo in range(0, len(chunks), batch):
         t0 = time.monotonic()
         _, preps = pipeline.prepare_batch(chunks[lo: lo + batch], settings)
         t1 = time.monotonic()
-        if preps:
-            pipeline._polish_batch_arrow(preps, settings,
-                                         torch.device("cuda"))
+        if settings.model == "quiver":
+            for p in preps:
+                pipeline.polish_prepared(p, settings, device=dev)
+        elif preps:
+            pipeline._polish_batch_arrow(preps, settings, dev)
         torch.cuda.synchronize()
         t_draft += t1 - t0
         t_polish += time.monotonic() - t1
@@ -80,16 +86,21 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 2
+    model = sys.argv[1] if len(sys.argv) > 1 else "arrow"
     rng = np.random.default_rng(chip_smoke.SEED)
     chunks, _ = chip_smoke.simulate_chunks(rng, chip_smoke.N_ZMWS,
                                            chip_smoke.TPL_LEN,
                                            chip_smoke.PASSES)
-    settings = pipeline.ConsensusSettings()
-    run(chunks, settings, chip_smoke.BATCH)                  # warm-up
+    settings = pipeline.ConsensusSettings(model=model)
+    if model == "quiver":
+        warm, chunks, batch = chunks[1:2], chunks[:1], 1
+    else:
+        warm, batch = chunks, chip_smoke.BATCH
+    run(warm, settings, batch)                               # warm-up
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        t_draft, t_polish = run(chunks, settings, chip_smoke.BATCH)
+        t_draft, t_polish = run(chunks, settings, batch)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict[str, float] = {}
@@ -101,7 +112,7 @@ def main() -> int:
                         for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
     print(json.dumps({
-        "card": chip_smoke.card_line(), "zmws": chip_smoke.N_ZMWS,
+        "card": chip_smoke.card_line(), "model": model, "zmws": len(chunks),
         "draft_s": t_draft, "polish_s": t_polish,
         "device_busy_ms": busy_ms,
         "device_idle_share_of_polish": 1.0 - busy_ms / (t_polish * 1e3),

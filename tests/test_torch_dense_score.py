@@ -21,6 +21,10 @@ from pbccs_tpu_torch.ops import dense_score_cuda as tds
 
 from test_torch_fwdbwd import make_case
 
+# The suite runs as parallel worker processes (pytest-xdist): one torch
+# intra-op thread each keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
 W = 64
 RTOL, ATOL = 2e-5, 2e-3
 _ENDOFF = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1])

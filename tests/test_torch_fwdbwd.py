@@ -24,6 +24,10 @@ from pbccs_tpu_torch.ops import fwdbwd as tfb
 from pbccs_tpu_torch.ops import fwdbwd_cuda as tfc
 from pbccs_tpu_torch.simulate import simulate_zmw
 
+# The suite runs as parallel worker processes (pytest-xdist): one torch
+# intra-op thread each keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
 LL_ATOL = 1e-4
 
 
@@ -259,3 +263,23 @@ def test_mated_mask_matches_host_rule():
                                (ll_a, ll_b, rl, ts, te)))
     want = jscorer.mated_mask(ll_a, ll_b, rl, ts, te)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ftz_flushes_exactly_the_subnormals():
+    """ops.fwdbwd.ftz gives the bits of where(|x| < min normal, +0, x)
+    on random float32 bit patterns and on the edge values; NaN stays
+    NaN."""
+    rng = np.random.default_rng(13)
+    tiny = np.finfo(np.float32).tiny
+    sub = np.nextafter(tiny, np.float32(0))
+    edge = np.array([0.0, -0.0, tiny, -tiny, sub, -sub, 1e-45, -1e-45,
+                     np.inf, -np.inf, np.nan, 1.0, -1.0,
+                     np.finfo(np.float32).max], np.float32)
+    x = np.concatenate([rng.integers(-2**31, 2**31, 200_000, np.int64)
+                        .astype(np.int32).view(np.float32), edge])
+    got = tfb.ftz(torch.as_tensor(x)).numpy()
+    want = np.where(np.abs(x) < tiny, np.float32(0.0), x)
+    nan = np.isnan(want)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))

@@ -8,8 +8,9 @@ conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
-Tolerances: fills bitwise equal to the plain scan (same association,
--fmad=false; log-likelihoods also within the 1e-4 contract); dense
+Tolerances: fills (K1 and the Quiver K2) bitwise equal to the plain
+scan (same association, -fmad=false; log-likelihoods also within the
+1e-4 contract); dense
 interior scores rtol 2e-5 / atol 2e-3 (the reductions sum lanes in
 another order); the card's process_chunks agrees with the CPU's on the
 consensus and within 1 QV."""
@@ -97,6 +98,64 @@ def test_fill_scan_kernel_matches_plain(cuda, W, backward):
     np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=1e-6)
 
 
+def _quiver_case(seed: int, L: int, n_reads: int, dev):
+    """One simulated ZMW's reads against their true template windows,
+    flat default QV tracks, as the Quiver fills' batch inputs."""
+    from pbccs_tpu_torch.models.quiver.features import flat_default_features
+    from pbccs_tpu_torch.models.quiver.recursor import (feature_arrays,
+                                                        stack_features)
+
+    rng = np.random.default_rng(seed)
+    tpl, reads, strands, _ = simulate_zmw(rng, L, n_reads)
+    feats = [flat_default_features(r) for r in reads]
+    wins = np.stack([params.revcomp(tpl) if s else tpl for s in strands])
+    imax = max(len(f) for f in feats)
+    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    return (stack_features([feature_arrays(f, imax, dev) for f in feats]),
+            t([len(f) for f in feats]), t(wins), t([L] * n_reads))
+
+
+@pytest.mark.parametrize("moves", ["basic", "all"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_fill_scan_merge_kernel_matches_plain(cuda, moves, backward):
+    from pbccs_tpu_torch.models.quiver import fill as qf
+    from pbccs_tpu_torch.models.quiver.params import (ALL_MOVES,
+                                                      BASIC_MOVES,
+                                                      QuiverConfig)
+
+    cfg = QuiverConfig(moves_available=ALL_MOVES if moves == "all"
+                       else BASIC_MOVES)
+    feat, rlens, tpls, tlens = _quiver_case(24, 300, 6, cuda)
+    ops, _ = qf.coefficients(feat, rlens, tpls, tlens, cfg,
+                             cfg.banding.band_width, backward)
+    before = fc.fill_scan_merge.launches
+    vk, lk = fc.fill_scan_merge(*ops, backward)
+    assert fc.fill_scan_merge.launches == before + 1
+    vp, lp = fc.fill_scan_merge_plain(*ops, backward)
+    torch.cuda.synchronize()
+    assert torch.equal(vk, vp)
+    np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=1e-6)
+
+
+def test_quiver_process_chunks_card_matches_cpu(cuda):
+    from pbccs_tpu_torch.pipeline import (Chunk, ConsensusSettings, Subread,
+                                          process_chunks)
+
+    rng = np.random.default_rng(25)
+    _, reads, _, snr = simulate_zmw(rng, 150, 5)
+    chunks = [Chunk("q", [Subread(f"q/{i}", r) for i, r in enumerate(reads)],
+                    snr)]
+    settings = ConsensusSettings(model="quiver")
+    before = fc.fill_scan_merge.launches
+    gpu = process_chunks(chunks, settings)
+    assert fc.fill_scan_merge.launches > before
+    cpu = process_chunks(chunks, settings, device="cpu")
+    assert gpu.counts == cpu.counts and len(gpu.results) == 1
+    a, b = gpu.results[0], cpu.results[0]
+    assert a.sequence == b.sequence
+    assert np.abs(a.qvs.astype(int) - b.qvs.astype(int)).max() <= 1
+
+
 def test_dense_score_kernel_matches_plain(cuda):
     W = 64
     c = make_case(22, L=250, n_reads=5)
@@ -137,6 +196,8 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError):
         fc.fill_scan(x.float(), x.float(), x.float(), m, s,
                      col.long(), False)
+    with pytest.raises(TypeError):
+        fc.fill_scan_merge(x, x, x, x, m, s, col, False)
 
 
 def test_process_chunks_card_matches_cpu(cuda):

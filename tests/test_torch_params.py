@@ -26,6 +26,10 @@ from pbccs_tpu_torch.models.arrow import mutations as tmut
 from pbccs_tpu_torch.models.arrow import params as tp
 from pbccs_tpu_torch.models.arrow import scorer as tscorer
 
+# The suite runs as parallel worker processes (pytest-xdist): one torch
+# intra-op thread each keeps them from oversubscribing the cores.
+torch.set_num_threads(1)
+
 F32_RTOL = 1e-6
 F32_POLY_RTOL = 5e-6
 
