@@ -22,14 +22,24 @@ script exits non-zero):
      true template, wall time, ZMW/s, peak device memory;
   5. cross_device: 4 ZMWs of the draw through process_chunks on the card
      and on the CPU: same consensus sequences, QVs within 1;
-  6. fill_scan_merge (K2): one fill batch of the Quiver path's mutation
-     scoring (a 2 kb ZMW of the draw, its true template as the draft,
-     flat default QV tracks, the default QuiverConfig with every move,
-     W=96: one read against as many single-mutation windows as the
-     scorer puts in a batch); the kernel against its plain version on
-     the card, forward and backward: log-likelihoods within 1e-4
-     absolute, band values within 1e-5 relative; CUDA-event times of
-     both;
+  6. quiver_fill (K2): the Quiver path's mutation-scoring fills of a
+     2 kb ZMW of the draw (its true template as the draft, flat default
+     QV tracks, the default QuiverConfig with every move, W=96).  At
+     PR 2's shape, one read against 349 single-mutation windows (2002
+     columns), the kernel in its band-value mode against its plain
+     version on the card, forward and backward: log-likelihoods within
+     1e-4 absolute, band values within 1e-5 relative (expected 0); its
+     log-likelihood-only mode against the band-value mode (log-scales
+     and final cells bitwise); CUDA-event times of the kernel in both
+     modes and of the plain version.  At the scorer's own batch (the
+     forward-strand reads against as many single-mutation windows as
+     QuiverMultiReadScorer._chunk puts in one batch), the launch the
+     Quiver path makes: the kernel's log-likelihood-only mode timed, and
+     its outputs on a spread sample of the batch's rows (the first and
+     last 64 and every (R // 256)-th, every read of the group among them)
+     against the plain version on those rows (rows are independent):
+     log-likelihoods within 1e-4 absolute, log-scales within 1e-5
+     (expected 0);
   7. quiver_path: process_chunks with ConsensusSettings(model="quiver")
      over 4 simulated 2 kb, 3-10-pass ZMWs on the card, launch counters
      zeroed just before and read just after; then one ~300 bp, 5-pass
@@ -68,6 +78,15 @@ QUIVER_SMALL = (300, 5)     # template length, passes of the card-vs-CPU ZMW
 # float32 operations/s outside the tensor cores
 PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
+# issue rates of its 132 SMs at the data sheet's 1.98 GHz boost clock, by
+# operation type (CUDA C++ Programming Guide, throughput of native
+# arithmetic instructions, compute capability 9.0, results per clock per
+# SM): 128 float32 adds or multiplies (PEAK_F32 counts a fused
+# multiply-add as two operations), 64 32-bit integer adds, compares,
+# min/max and logic operations (selects counted with them)
+SM_CLOCKS = 132 * 1.98e9
+RATE_F32_OP = 128 * SM_CLOCKS
+RATE_INT_OP = 64 * SM_CLOCKS
 
 
 def emit(obj) -> None:
@@ -178,7 +197,7 @@ def phase_build() -> dict:
            "nvcc_s": {n: log[n]["seconds"] for n in cuda_lib.KERNELS},
            "ptxas": {n: [ln.strip() for ln in log[n]["output"].splitlines()
                          if "registers" in ln or "spill" in ln
-                         or "smem" in ln]
+                         or "smem" in ln or "entry function" in ln]
                      for n in cuda_lib.KERNELS}}
     emit(out)
     return out
@@ -375,13 +394,29 @@ def phase_cross(chunks) -> dict:
     return out
 
 
+#: rows of PR 2's K2 fill batch (2^26 cells // (2002 columns x 96 lanes)):
+#: the shape at which phase 6 holds K2 against its plain version
+K2_CHECK_ROWS = 349
+#: rows of the scorer's batch held against the plain version: the first
+#: and last K2_SAMPLE_EDGE and every (R // K2_SAMPLE_STRIDE)-th
+K2_SAMPLE_EDGE, K2_SAMPLE_STRIDE = 64, 256
+#: per lane and column of csrc/quiver_fill.cu, its integer, compare,
+#: select and logic operations, counted in the kernel body per held slot:
+#: the operand build (valid row 3, source row 1, step and scan-cut tests
+#: 2, Incorporate 2, tagged Delete 4, Extra 3, Merge 6, the four
+#: band-gated operand selects 7 + 6 + 7 + 4), the seed-lane and
+#: final-cell tests and the output select (3).  The layout's shuffles,
+#: roll selects and table-row reload tests are not counted.
+K2_INT_OPS = 45 + 3
+
+
 def quiver_fixture(chunk, truth, device):
-    """K2 inputs at the Quiver path's shape: the first fill batch of a
-    mutation-scoring round (QuiverMultiReadScorer._fill_lls_group) over
-    one ZMW with its true template as the draft and flat default QV
-    tracks.  The first (forward-strand) read against single-mutation
-    windows spread over the template, as many rows as the scorer puts
-    in one batch of windows that long."""
+    """K2 inputs at the Quiver path's shapes: a QuiverMultiReadScorer over
+    one ZMW (its true template as the draft, flat default QV tracks) and
+    single-mutation windows spread over the template.  "check": the
+    first read against K2_CHECK_ROWS windows.  "batch": the forward-strand
+    reads (one window geometry, as _fill_lls_group groups them) against
+    enough windows for one batch of the scorer's _chunk rows, read-major."""
     from pbccs_tpu_torch.models.arrow import mutations as mutlib
     from pbccs_tpu_torch.models.quiver.features import flat_default_features
     from pbccs_tpu_torch.models.quiver.scorer import QuiverMultiReadScorer
@@ -391,80 +426,161 @@ def quiver_fixture(chunk, truth, device):
         truth, [flat_default_features(r.seq) for r in chunk.reads],
         [i % 2 for i in range(n)], [0] * n, [L] * n, device=device)
     muts = mutlib.enumerate_unique(truth)
+    dev = scorer.device
+
+    def rows(n_wins, reads, n_rows):
+        pick = np.linspace(0, len(muts) - 1, n_wins).round().astype(np.int64)
+        tw, wl = scorer._windows([mutlib.apply_mutations(truth, [muts[k]])
+                                  for k in pick])
+        rr = np.repeat(np.asarray(reads, np.int32), n_wins)[:n_rows]
+        rw = np.tile(np.arange(n_wins, dtype=np.int32), len(reads))[:n_rows]
+        t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+        return dict(wins=tw, wlens=wl, row_read=t(rr), row_win=t(rw))
+
+    group = list(range(0, n, 2))
     # the longest windows, an insertion's, are one column past the template
-    rows = scorer._chunk(L + 1)
-    pick = np.linspace(0, len(muts) - 1, rows).round().astype(np.int64)
-    wins = [mutlib.apply_mutations(truth, [muts[k]]) for k in pick]
-    feat, rlens, tpls, tlens = scorer._rows(np.zeros(rows, np.int64), wins)
-    return dict(feat=feat, rlens=rlens, tpls=tpls, tlens=tlens)
+    big = scorer._chunk(L + 1)
+    return dict(tables=scorer._tables, rlens=scorer._rlens,
+                config=scorer.config, W=scorer._W,
+                check=rows(K2_CHECK_ROWS, [0], K2_CHECK_ROWS),
+                batch=rows(-(-big // len(group)), group, big))
 
 
-def phase_fill_merge(qx) -> dict:
-    from pbccs_tpu_torch.models.quiver import fill as qf
-    from pbccs_tpu_torch.models.quiver.params import QuiverConfig
-    from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
-    from pbccs_tpu_torch.ops.fwdbwd import BandedMatrix
+def k2_bound(qx, rows, vals: bool):
+    """(bound ms, bound_by, bytes, ops) of one K2 launch: each input read
+    once (the tables of the reads the rows name, read lengths, windows,
+    window lengths, row indices, band offsets), each output written once
+    (band values in the band-value mode, log-scales, final cells); per
+    lane of every column run (all nc in the band-value mode, J + 1 per
+    row in the log-likelihood-only mode) K2_INT_OPS at RATE_INT_OP and
+    float32 operations at RATE_F32_OP (the Incorporate/Delete products
+    and sum 3, the Merge quotient, product and sum 3, 3 per scan step,
+    the column max and the scaling divide 2).  The two pipes issue side
+    by side, so the operations take the longer of their two times; `ops`
+    is (integer, float32)."""
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import N_COLS
 
-    cfg = QuiverConfig()
-    W = cfg.banding.band_width
-    rlens, tlens = qx["rlens"], qx["tlens"]
-    R, Jmax = qx["tpls"].shape
+    W = qx["W"]
+    R = rows["row_read"].shape[0]
+    M, Jmax = rows["wins"].shape
     nc = Jmax + 1
-    rows = []
-    launches0 = fc.fill_scan_merge.launches
+    P = qx["tables"].shape[1]
+    n_tab = int(torch.unique(rows["row_read"]).numel())
+    n_bytes = (4 * (R * nc * W * vals + 2 * R * nc + R + 2 * R
+                    + n_tab * P * N_COLS + n_tab + M) + M * Jmax)
+    J = rows["wlens"][rows["row_win"].long()]
+    cols = R * nc if vals else int((J + 1).sum())
+    S = math.ceil(math.log2(W))
+    n_int, n_f32 = cols * W * K2_INT_OPS, cols * W * (3 + 3 + 3 * S + 2)
+    t_b = n_bytes / PEAK_BYTES
+    t_o = max(n_int / RATE_INT_OP, n_f32 / RATE_F32_OP)
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            n_bytes, (n_int, n_f32))
+
+
+def phase_quiver_fill(qx) -> dict:
+    from pbccs_tpu_torch.models.quiver import fill as qf
+    from pbccs_tpu_torch.ops import quiver_fill_cuda as qk
+    from pbccs_tpu_torch.ops.fwdbwd import band_offsets
+
+    W = qx["W"]
+    merge = qf._use_merge(qx["config"])
+
+    def args(rows):
+        I = qx["rlens"][rows["row_read"].long()]
+        J = rows["wlens"][rows["row_win"].long()]
+        offsets = band_offsets(I, J, rows["wins"].shape[1] + 1, W)
+        return (qx["tables"], qx["rlens"], rows["wins"], rows["wlens"],
+                rows["row_read"], rows["row_win"], offsets, W, merge), J
+
+    out_rows = []
+    launches0 = qk.quiver_fill.launches
+    chk, J = args(qx["check"])
     for backward in (False, True):
-        ops, offsets = qf.coefficients(qx["feat"], rlens, qx["tpls"], tlens,
-                                       cfg, W, backward)
-        vk, lk = fc.fill_scan_merge(*ops, backward)
-        vp, lp = fc.fill_scan_merge_plain(*ops, backward)
+        vk, lk, fk = qk.quiver_fill(*chk, backward)
+        _, lb, fb = qk.quiver_fill(*chk, backward, vals=False)
+        vp, lp, fp = qk.quiver_fill_plain(*chk, backward)
         torch.cuda.synchronize()
-        if backward:
-            ll = lambda v, s: qf.quiver_loglik_backward_batch(  # noqa: E731
-                BandedMatrix(v, offsets, s), tlens)
-        else:
-            ll = lambda v, s: qf.quiver_loglik_batch(  # noqa: E731
-                BandedMatrix(v, offsets, s), rlens, tlens)
-        ll_err = float((ll(vk, lk) - ll(vp, lp)).abs().max())
+        ll_err = float((qf._loglik(fk, lk, J) - qf._loglik(fp, lp, J))
+                       .abs().max())
         rel = float(((vk - vp).abs() / vp.abs().clamp(min=1e-30)).max())
-        ms = cuda_ms(lambda: fc.fill_scan_merge(*ops, backward), 5)
-        plain_ms = cuda_ms(lambda: fc.fill_scan_merge_plain(*ops, backward),
-                           1)
-        S = math.ceil(math.log2(W))
-        # cm, cd, cc, cg in and vals out; mask in, log-scales out; seed;
-        # seedcol
-        n_bytes = 4 * (5 * R * nc * W + 2 * R * nc + R * W + R)
-        # per cell: two products and a sum (Incorporate, Delete), a
-        # quotient, product and sum (Merge), 3 per scan step, the max
-        # and the divide
-        n_ops = R * nc * W * (3 + 3 + 3 * S + 2)
-        b_ms, b_by = bound_ms(n_bytes, n_ops)
-        row = {"W": W, "backward": backward, "ll_max_abs_err": ll_err,
-               "vals_max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
-        rows.append(row)
-        if ll_err > 1e-4 or rel > 1e-5:
-            raise AssertionError(f"fill_scan_merge disagrees with its plain "
-                                 f"version: {row}")
-    out = {"phase": "fill_scan_merge", "reads": R, "nc": nc, "rows": rows,
-           "launches": fc.fill_scan_merge.launches - launches0}
+        modes_equal = bool(torch.equal(lk, lb) and torch.equal(fk, fb))
+        ms = cuda_ms(lambda: qk.quiver_fill(*chk, backward), 5)
+        ll_ms = cuda_ms(lambda: qk.quiver_fill(*chk, backward, vals=False), 5)
+        plain_ms = cuda_ms(lambda: qk.quiver_fill_plain(*chk, backward), 1)
+        b_ms, b_by, n_bytes, n_ops = k2_bound(qx, qx["check"], True)
+        lb_ms, lb_by, _, _ = k2_bound(qx, qx["check"], False)
+        row = {"shape": "check", "W": W, "backward": backward,
+               "rows": int(J.numel()), "nc": chk[2].shape[1] + 1,
+               "ll_max_abs_err": ll_err, "vals_max_rel_err": rel,
+               "ll_mode_bitwise": modes_equal, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+               "ops": n_ops, "ll_mode_ms": ll_ms, "ll_mode_bound_ms": lb_ms,
+               "ll_mode_bound_by": lb_by}
+        out_rows.append(row)
+        if ll_err > 1e-4 or rel > 1e-5 or not modes_equal:
+            raise AssertionError(f"quiver_fill disagrees with its plain "
+                                 f"version or across its modes: {row}")
+        del vk, vp
+    big, J = args(qx["batch"])
+    R = J.numel()
+    idx = torch.unique(torch.cat([
+        torch.arange(min(K2_SAMPLE_EDGE, R)),
+        torch.arange(max(0, R - K2_SAMPLE_EDGE), R),
+        torch.arange(0, R, max(1, R // K2_SAMPLE_STRIDE))])).to(J.device)
+    # the sampled rows as a fill of their own: same tables, windows and
+    # band offsets (the batch's column count), so the plain version's
+    # planes stay at a few hundred rows
+    sub = big[:4] + (big[4][idx], big[5][idx], big[6][idx]) + big[7:]
+    reads_covered = bool(torch.equal(torch.unique(big[4][idx]),
+                                     torch.unique(big[4])))
+    for backward in (False, True):
+        _, lk, fk = qk.quiver_fill(*big, backward, vals=False)
+        _, lp, fp = qk.quiver_fill_plain(*sub, backward, vals=False)
+        torch.cuda.synchronize()
+        ll_err = float((qf._loglik(fk[idx], lk[idx], J[idx])
+                        - qf._loglik(fp, lp, J[idx])).abs().max())
+        ls_err = float((lk[idx] - lp).abs().max())
+        ms = cuda_ms(lambda: qk.quiver_fill(*big, backward, vals=False), 3)
+        sample_ms = cuda_ms(lambda: qk.quiver_fill(*sub, backward,
+                                                   vals=False), 3)
+        plain_ms = cuda_ms(lambda: qk.quiver_fill_plain(*sub, backward,
+                                                        vals=False), 1)
+        b_ms, b_by, n_bytes, n_ops = k2_bound(qx, qx["batch"], False)
+        row = {"shape": "batch", "W": W, "backward": backward, "rows": R,
+               "nc": big[2].shape[1] + 1, "ll_mode_ms": ms,
+               "us_per_row": 1e3 * ms / R, "ll_mode_bound_ms": b_ms,
+               "ll_mode_bound_by": b_by, "bytes": n_bytes, "ops": n_ops,
+               "checked_rows": int(idx.numel()),
+               "checked_reads_cover_group": reads_covered,
+               "ll_max_abs_err": ll_err, "ls_max_abs_err": ls_err,
+               "checked_rows_ms": sample_ms, "plain_ms": plain_ms}
+        out_rows.append(row)
+        if ll_err > 1e-4 or ls_err > 1e-5 or not reads_covered:
+            raise AssertionError(f"quiver_fill disagrees with its plain "
+                                 f"version at the scorer's batch: {row}")
+    out = {"phase": "quiver_fill", "rows": out_rows,
+           "launches": qk.quiver_fill.launches - launches0}
     emit(out)
     return out
 
 
 def _launch_counts() -> dict:
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan, fill_scan_merge
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
     return {"fill_scan": fill_scan.launches,
-            "fill_scan_merge": fill_scan_merge.launches,
+            "quiver_fill": quiver_fill.launches,
             "dense_score": dense_score.launches}
 
 
 def _zero_launch_counts() -> None:
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan, fill_scan_merge
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
-    fill_scan.launches = fill_scan_merge.launches = dense_score.launches = 0
+    fill_scan.launches = quiver_fill.launches = dense_score.launches = 0
 
 
 def _same_results(a, b) -> tuple[bool, int]:
@@ -517,7 +633,7 @@ def phase_quiver(chunks, truths, small) -> dict:
                      "same_sequences": same, "qv_max_abs_diff": qv_diff,
                      "cuda_s": t2 - t1, "cpu_s": t3 - t2}}
     emit(out)
-    if launches["fill_scan_merge"] <= 0:
+    if launches["quiver_fill"] <= 0:
         raise AssertionError("the Quiver path did not launch K2")
     if tally.counts[Failure.OTHER] or tally.total != len(chunks):
         raise AssertionError(f"Quiver tally {out['tally']} of {len(chunks)}")
@@ -616,14 +732,14 @@ def main() -> int:
     dense = phase_dense(fx, kept)
     main_path = phase_main(chunks, truths)
     phase_cross(chunks[:N_CROSS])
-    merge = phase_fill_merge(quiver_fixture(chunks[0], truths[0], "cuda"))
+    k2 = phase_quiver_fill(quiver_fixture(chunks[0], truths[0], "cuda"))
     small, _ = simulate_chunks(rng, 1, QUIVER_SMALL[0],
                                (QUIVER_SMALL[1],) * 2)
     quiver = phase_quiver(chunks[:N_QUIVER], truths[:N_QUIVER], small)
     phase_fallbacks(rng)
 
     fwd, bwd = kept["fwd"][1], kept["bwd"][1]
-    mf, mb = merge["rows"]
+    mf, mb = k2["rows"][2:]
     kernels = [
         {"name": "fill_scan", "route": "cuda",
          "source": "pbccs_tpu_torch/csrc/fill_scan.cu",
@@ -634,15 +750,17 @@ def main() -> int:
          "plain_ms": (fwd["plain_ms"] + bwd["plain_ms"]) / 2,
          "bound_ms": (fwd["bound_ms"] + bwd["bound_ms"]) / 2,
          "bound_by": fwd["bound_by"], "library_ms": None},
-        {"name": "fill_scan_merge", "route": "cuda",
-         "source": "pbccs_tpu_torch/csrc/fill_scan.cu",
+        {"name": "quiver_fill", "route": "cuda",
+         "source": "pbccs_tpu_torch/csrc/quiver_fill.cu",
          "replaces": "pbccs_tpu/ops/fwdbwd_pallas.py:320",
-         "launches": quiver["launches"]["fill_scan_merge"],
-         "max_abs_err": max(mf["ll_max_abs_err"], mb["ll_max_abs_err"]),
-         "ms": (mf["ms"] + mb["ms"]) / 2,
+         "launches": quiver["launches"]["quiver_fill"],
+         "max_abs_err": max(r["ll_max_abs_err"] for r in k2["rows"]),
+         # the launch the Quiver path makes: log-likelihood-only mode at
+         # the scorer's batch; the plain version on its checked rows
+         "ms": (mf["ll_mode_ms"] + mb["ll_mode_ms"]) / 2,
          "plain_ms": (mf["plain_ms"] + mb["plain_ms"]) / 2,
-         "bound_ms": (mf["bound_ms"] + mb["bound_ms"]) / 2,
-         "bound_by": mf["bound_by"], "library_ms": None},
+         "bound_ms": (mf["ll_mode_bound_ms"] + mb["ll_mode_bound_ms"]) / 2,
+         "bound_by": mf["ll_mode_bound_by"], "library_ms": None},
         {"name": "dense_score", "route": "cuda",
          "source": "pbccs_tpu_torch/csrc/dense_score.cu",
          "replaces": "pbccs_tpu/ops/dense_score_pallas.py:238",

@@ -1,35 +1,27 @@
 // K1: banded Arrow alpha/beta column scan over circular lanes.
-// K2: the same scan in merge mode, the banded Quiver alpha/beta fills.
 //
-// Replaces the TPU Pallas kernel pbccs_tpu/ops/fwdbwd_pallas.py::_fill_kernel,
-// launched there by _run_fill: with merge=False (K1) for
-// pallas_forward_batch / pallas_backward_batch, and with merge=True (K2)
-// for pbccs_tpu/models/quiver/pallas_fill.py's pallas_quiver_forward_batch /
-// pallas_quiver_backward_batch.
+// Replaces the TPU Pallas kernel pbccs_tpu/ops/fwdbwd_pallas.py::_fill_kernel
+// with merge=False, launched there by _run_fill for pallas_forward_batch /
+// pallas_backward_batch.  (Its merge=True mode, the Quiver fills, is K2:
+// csrc/quiver_fill.cu.)
 //
 // What it computes, per read and per kernel column k (0..nc-1):
 //   b[L]  = cm[L] * prev[(L - t) mod W] + cd[L] * prev[L]   (t = +1 fwd, -1 bwd)
-//   b[L] += cg[L] * (prev2[(L - t) mod W] / sprev)          (K2 only)
 //   b[L] += seed[L]                        if k == seedcol
 //   ceil(log2 W) circular Hillis-Steele steps, d = 1, 2, 4, ...:
 //       b[L] = b[L] + c[L] * b[(L - t*d) mod W];  c[L] = c[L] * c[(L - t*d) mod W]
 //   cmax  = max_L b[L]; scale = (mask && cmax > 0) ? cmax : 1
 //   col   = mask ? b / scale : b;  ls = (mask && cmax > 0) ? log(scale) : 0
-// stored at column k (forward) or nc-1-k (backward), then prev2 = prev,
-// sprev = scale, prev = col.  K2's extra term is the Quiver Merge move:
-// one read base consuming two template columns, so the column two back
-// (prev2, stored divided by its own scale) is brought to column k-1's
-// scale by dividing by sprev, the scale of column k-1; at the first
-// column prev2 = 0 and sprev = 1.
+// stored at column k (forward) or nc-1-k (backward), then prev = col.
 // The association is exactly ops/fwdbwd_cuda.fill_scan_plain's, and the
 // build uses -fmad=false -ftz=true, so products, sums and quotients round
 // and flush as in the plain torch version.
 //
 // What bounds it on this card: not bytes (three W-float coefficient rows in
-// and one out per column, four with K2's cg, about 16-20 bytes per lane)
-// and not arithmetic (about 3*log2(W) flops per lane per column), but
-// latency: the columns of a read are a strict sequence, and each column is
-// ceil(log2 W) + 2 block-wide barriers long.
+// and one out per column, about 16 bytes per lane) and not arithmetic
+// (about 3*log2(W) flops per lane per column), but latency: the columns of
+// a read are a strict sequence, and each column is ceil(log2 W) + 2
+// block-wide barriers long.
 //
 // What the design does about it: one block per read and one thread per
 // lane (W rounded up to a warp multiple), so the R reads of a batch run as
@@ -37,12 +29,8 @@
 // latency; the column loop stays inside the block and nothing is carried
 // between blocks.  The cross-lane roll and each scan step exchange through
 // shared memory (the scan double-buffers it so one barrier per step
-// suffices), and the column max is a warp-shuffle reduction.  K2 adds one
-// W-float shared row for prev2, rewritten only after the column's last
-// scan barrier (other lanes read prev2[(L - t) mod W] at the column's
-// start), and keeps sprev in a register: every thread computes the same
-// scale.  W need not be a power of two (96, 192): every roll index is
-// (L - t*d) mod W.
+// suffices), and the column max is a warp-shuffle reduction.  W need not
+// be a power of two (96, 192): every roll index is (L - t*d) mod W.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,11 +42,9 @@ __device__ __forceinline__ int wrap_lane(int x, int W) {
   return x < 0 ? x + W : x;
 }
 
-template <bool MERGE>
 __global__ void fill_scan_kernel(const float* __restrict__ cm,
                                  const float* __restrict__ cd,
                                  const float* __restrict__ cc,
-                                 const float* __restrict__ cg,
                                  const float* __restrict__ mask,
                                  const float* __restrict__ seed,
                                  const int* __restrict__ seedcol,
@@ -70,7 +56,6 @@ __global__ void fill_scan_kernel(const float* __restrict__ cm,
   float* sb = prev + W;       // 2W: scan b, double-buffered
   float* sc = sb + 2 * W;     // 2W: scan c, double-buffered
   float* red = sc + 2 * W;    // one max per warp (32 slots)
-  float* prev2 = red + 32;    // W (K2): the column before the previous one
 
   const int r = blockIdx.x;
   const int L = threadIdx.x;
@@ -81,12 +66,8 @@ __global__ void fill_scan_kernel(const float* __restrict__ cm,
   const int scol = seedcol[r];
   const float sd = lane_ok ? seed[(size_t)r * W + L] : 0.0f;
   const int src1 = lane_ok ? wrap_lane(L - t, W) : 0;
-  float sprev = 1.0f;        // K2: scale of the previous column
 
-  if (lane_ok) {             // the first column sees zero predecessors
-    prev[L] = 0.0f;
-    if (MERGE) prev2[L] = 0.0f;
-  }
+  if (lane_ok) prev[L] = 0.0f;   // the first column sees zero predecessors
   __syncthreads();
 
   for (int k = 0; k < nc; ++k) {
@@ -95,7 +76,6 @@ __global__ void fill_scan_kernel(const float* __restrict__ cm,
     if (lane_ok) {
       pv = prev[L];
       b = cm[at] * prev[src1] + cd[at] * pv;
-      if (MERGE) b = b + cg[at] * (prev2[src1] / sprev);
       if (k == scol) b = b + sd;
       c = cc[at];
     }
@@ -131,17 +111,15 @@ __global__ void fill_scan_kernel(const float* __restrict__ cm,
     const int kout = backward ? nc - 1 - k : k;
     if (lane_ok) {
       vals[row0 + (size_t)kout * W + L] = col;
-      if (MERGE) prev2[L] = pv;   // every lane read prev2 before the scan
       prev[L] = col;
     }
-    if (MERGE) sprev = scale;
     if (L == 0) ls[(size_t)r * nc + kout] = do_scale ? logf(scale) : 0.0f;
-    __syncthreads();   // prev, prev2 and red are rewritten by the next column
+    __syncthreads();   // prev and red are rewritten by the next column
   }
 }
 
-static size_t smem_bytes(int W, bool merge) {
-  return (size_t)((merge ? 6 : 5) * W + 32) * sizeof(float);
+static size_t smem_bytes(int W) {
+  return (size_t)(5 * W + 32) * sizeof(float);
 }
 
 }  // namespace
@@ -153,22 +131,7 @@ extern "C" int pbccs_fill_scan(const float* cm, const float* cd,
                                int backward, void* stream) {
   if (R <= 0 || nc <= 0) return (int)cudaSuccess;
   const int threads = ((W + 31) / 32) * 32;
-  fill_scan_kernel<false><<<R, threads, smem_bytes(W, false),
-                            (cudaStream_t)stream>>>(
-      cm, cd, cc, nullptr, mask, seed, seedcol, vals, ls, nc, W, backward);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int pbccs_fill_scan_merge(const float* cm, const float* cd,
-                                     const float* cc, const float* cg,
-                                     const float* mask, const float* seed,
-                                     const int* seedcol, float* vals,
-                                     float* ls, int R, int nc, int W,
-                                     int backward, void* stream) {
-  if (R <= 0 || nc <= 0) return (int)cudaSuccess;
-  const int threads = ((W + 31) / 32) * 32;
-  fill_scan_kernel<true><<<R, threads, smem_bytes(W, true),
-                           (cudaStream_t)stream>>>(
-      cm, cd, cc, cg, mask, seed, seedcol, vals, ls, nc, W, backward);
+  fill_scan_kernel<<<R, threads, smem_bytes(W), (cudaStream_t)stream>>>(
+      cm, cd, cc, mask, seed, seedcol, vals, ls, nc, W, backward);
   return (int)cudaGetLastError();
 }

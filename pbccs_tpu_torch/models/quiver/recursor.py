@@ -3,9 +3,9 @@
 Port of the parts of pbccs_tpu.models.quiver.recursor that the fills
 (models.quiver.fill) need: QuiverFeatureArrays, feature_arrays and
 _move_params.  The JAX package's XLA recursor (quiver_forward /
-quiver_backward) is its CPU path; the port's CPU path is the plain
-version of the K2 scan (ops.fwdbwd_cuda.fill_scan_merge_plain), so the
-recursor itself is not ported."""
+quiver_backward) is its CPU path; the port's CPU path is K2's plain
+version (ops.quiver_fill_cuda.quiver_fill_plain), so the recursor itself
+is not ported."""
 
 from __future__ import annotations
 

@@ -8,13 +8,15 @@ gate, Score(mutation) = sum over active reads of LL(mutated) - LL(current),
 and ApplyMutations with the window coordinate remap.  Move scores depend
 on the template only through base identity, so a mutation is scored by
 a full banded refill of each overlapping read's mutated window (K2 on
-the card).
+the card, in its log-likelihood-only mode).  The reads' move scores are
+tabulated once (fill.emission_tables: the features never change while
+polishing); a fill batch names its rows by (read, window) index, so a
+group's mutated windows are uploaded once for all its reads.
 
 The JAX package pads Jmax and the read count to powers of two to bound
 its compiled-program menu; here every fill batch is sized to its own
 longest window (columns past a read's window are dead, so the LLs do
-not change), and batches are cut so their coefficient planes stay within
-a fixed cell budget."""
+not change), and batches are cut to a fixed memory budget (`_chunk`)."""
 
 from __future__ import annotations
 
@@ -26,21 +28,22 @@ import torch
 from pbccs_tpu_torch.device import resolve_device
 from pbccs_tpu_torch.models.arrow import mutations as mutlib
 from pbccs_tpu_torch.models.arrow.params import revcomp
-from pbccs_tpu_torch.models.quiver.fill import (backward_batch,
-                                                forward_batch,
-                                                quiver_loglik_backward_batch,
-                                                quiver_loglik_batch)
+from pbccs_tpu_torch.models.quiver.fill import emission_tables, fill_lls
 from pbccs_tpu_torch.models.quiver.params import QuiverConfig
-from pbccs_tpu_torch.models.quiver.recursor import (QuiverFeatureArrays,
-                                                    feature_arrays,
+from pbccs_tpu_torch.models.quiver.recursor import (feature_arrays,
                                                     stack_features)
 
 ADD_SUCCESS, ADD_ALPHABETAMISMATCH = 0, 1
 _AB_MISMATCH_TOL = 1e-3
-#: (rows x columns x band lanes) of one fill batch: bounds the memory of
-#: the coefficient planes (about 30 float32 planes of this size live at
-#: once in the precompute)
-_CELLS = {"cuda": 1 << 26, "cpu": 1 << 23}
+#: Fill batch budgets.  On the card K2's log-likelihood mode writes no
+#: (row, column, lane) tensor: a row costs its band offsets, log-scales
+#: and the (row, column) temporaries of band_offsets and the
+#: log-likelihood sum, about _ROW_COL_BYTES per column, and a batch is
+#: cut to _CUDA_BATCH_BYTES.  The CPU's plain version materialises about
+#: 30 float32 (rows x columns x lanes) planes: cut to _CPU_CELLS cells.
+_CUDA_BATCH_BYTES = 1 << 31
+_ROW_COL_BYTES = 40
+_CPU_CELLS = 1 << 23
 
 
 class QuiverMultiReadScorer:
@@ -59,10 +62,11 @@ class QuiverMultiReadScorer:
         self._tends = np.asarray(tends, np.int32)
         self._W = self.config.banding.band_width
         imax = max((len(f) for f in reads), default=1)
-        self._feats = stack_features(
-            [feature_arrays(f, imax, self.device) for f in reads]) \
-            if reads else None
-        self._rlens = np.asarray([len(f) for f in reads], np.int32)
+        self._tables = emission_tables(stack_features(
+            [feature_arrays(f, imax, self.device) for f in reads]),
+            self.config) if reads else None
+        self._rlens = torch.as_tensor(np.asarray([len(f) for f in reads],
+                                                 np.int32), device=self.device)
         self.statuses = np.zeros(self.n_reads, np.int32)
         self.active = np.zeros(self.n_reads, bool)
         self._rebuild(first=True)
@@ -74,25 +78,31 @@ class QuiverMultiReadScorer:
         win = tpl[int(self._tstarts[r]): int(self._tends[r])]
         return revcomp(win) if self._strands[r] == 1 else win
 
-    def _rows(self, read_idx: np.ndarray, wins: Sequence[np.ndarray]):
-        """One fill batch: the reads' feature rows and rlens, the windows
-        padded to the longest one (at least one column), and their
-        lengths, as tensors on the scorer's device."""
-        dev = self.device
+    def _windows(self, wins: Sequence[np.ndarray]):
+        """Windows padded to the longest one (at least one column) as an
+        (M, Jmax) int8 tensor on the scorer's device, and their lengths."""
         wlens = np.asarray([len(w) for w in wins], np.int32)
         tp = np.full((len(wins), max(int(wlens.max()), 1)), 4, np.int8)
         for i, w in enumerate(wins):
             tp[i, : len(w)] = w
-        idx = torch.as_tensor(read_idx, device=dev)
-        feats = QuiverFeatureArrays(*(x[idx] for x in self._feats))
-        return (feats, torch.as_tensor(self._rlens[read_idx], device=dev),
-                torch.as_tensor(tp, device=dev),
-                torch.as_tensor(wlens, device=dev))
+        return (torch.as_tensor(tp, device=self.device),
+                torch.as_tensor(wlens, device=self.device))
 
     def _chunk(self, n_cols: int) -> int:
         """Rows per fill batch for windows of up to n_cols columns."""
-        cells = _CELLS.get(self.device.type, _CELLS["cpu"])
-        return max(1, cells // ((n_cols + 1) * self._W))
+        if self.device.type == "cuda":
+            return max(1, _CUDA_BATCH_BYTES // ((n_cols + 1) * _ROW_COL_BYTES))
+        return max(1, _CPU_CELLS // ((n_cols + 1) * self._W))
+
+    def _lls(self, tw, wl, read_idx, win_idx, backward=False) -> np.ndarray:
+        """LLs of rows (read_idx[i], win_idx[i]) against windows tw, in
+        batches of at most _chunk rows, as float64."""
+        step = self._chunk(tw.shape[1])
+        out = [fill_lls(self._tables, self._rlens, tw, wl,
+                        read_idx[lo: lo + step], win_idx[lo: lo + step],
+                        self.config, self._W, backward)
+               for lo in range(0, len(read_idx), step)]
+        return torch.cat(out).cpu().numpy().astype(np.float64)
 
     def _rebuild(self, first: bool) -> None:
         """Forward and backward fills of every read against its current
@@ -102,18 +112,11 @@ class QuiverMultiReadScorer:
         if self.n_reads == 0:
             self.baselines = np.zeros(0)
             return
-        wins = [self._window_codes(r, self.tpl) for r in range(self.n_reads)]
-        lls_a, lls_b = [], []
-        step = self._chunk(max(len(w) for w in wins))
-        for lo in range(0, self.n_reads, step):
-            idx = np.arange(lo, min(lo + step, self.n_reads))
-            feats, rl, tp, tl = self._rows(idx, [wins[i] for i in idx])
-            alpha = forward_batch(feats, rl, tp, tl, self.config, self._W)
-            beta = backward_batch(feats, rl, tp, tl, self.config, self._W)
-            lls_a.append(quiver_loglik_batch(alpha, rl, tl))
-            lls_b.append(quiver_loglik_backward_batch(beta, tl))
-        ll_a = torch.cat(lls_a).cpu().numpy().astype(np.float64)
-        ll_b = torch.cat(lls_b).cpu().numpy().astype(np.float64)
+        tw, wl = self._windows([self._window_codes(r, self.tpl)
+                                for r in range(self.n_reads)])
+        idx = torch.arange(self.n_reads, dtype=torch.int32, device=self.device)
+        ll_a = self._lls(tw, wl, idx, idx)
+        ll_b = self._lls(tw, wl, idx, idx, backward=True)
         self.baselines = ll_a
         denom = np.where(ll_b == 0, 1.0, ll_b)
         mated = (np.abs(1.0 - ll_a / denom) <= _AB_MISMATCH_TOL) & \
@@ -171,20 +174,15 @@ class QuiverMultiReadScorer:
     def _fill_lls_group(self, rds: Sequence[int],
                         wins: Sequence[np.ndarray]) -> np.ndarray:
         """(len(rds), M) absolute forward LLs of each read of a group
-        against each mutated window: rows read-major (read g's windows at
-        rows [g*M, (g+1)*M)), filled in batches of at most _chunk rows."""
+        against each mutated window: the M windows uploaded once, rows
+        read-major (read g's windows at rows [g*M, (g+1)*M))."""
         G, M = len(rds), len(wins)
-        read_idx = np.repeat(np.asarray(rds), M)
-        step = self._chunk(max(len(w) for w in wins))
-        out = []
-        for lo in range(0, G * M, step):
-            hi = min(lo + step, G * M)
-            feats, rl, tp, tl = self._rows(
-                read_idx[lo:hi], [wins[i % M] for i in range(lo, hi)])
-            alpha = forward_batch(feats, rl, tp, tl, self.config, self._W)
-            out.append(quiver_loglik_batch(alpha, rl, tl))
-        lls = torch.cat(out).cpu().numpy().astype(np.float64)
-        return lls.reshape(G, M)
+        tw, wl = self._windows(wins)
+        read_idx = torch.as_tensor(np.repeat(np.asarray(rds, np.int32), M),
+                                   device=self.device)
+        win_idx = torch.arange(M, dtype=torch.int32,
+                               device=self.device).repeat(G)
+        return self._lls(tw, wl, read_idx, win_idx).reshape(G, M)
 
     # ------------------------------------------------------------------- QVs
 

@@ -33,7 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=true", "-Xptxas", "-v"]
 
-KERNELS = ("fill_scan", "dense_score")
+KERNELS = ("fill_scan", "quiver_fill", "dense_score")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}

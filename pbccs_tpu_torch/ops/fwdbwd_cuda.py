@@ -200,7 +200,8 @@ def _backward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
 
 
 def _scan_plain(cm, cd, cc, cg, mask, seed, seedcol, backward: bool):
-    """The column scan of K1 (cg None) and K2 in plain torch."""
+    """The column scan of K1 (cg None) and of K2 (the Merge carry) in
+    plain torch."""
     R, nc, W = cm.shape
     t = -1 if backward else 1
     vals = torch.empty_like(cm)
@@ -245,7 +246,8 @@ def fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward: bool):
 
 def fill_scan_merge_plain(cm, cd, cc, cg, mask, seed, seedcol,
                           backward: bool):
-    """The K2 column scan in plain torch: fill_scan_plain's column plus
+    """The scan half of K2's plain version (ops.quiver_fill_cuda
+    .quiver_fill_plain), in plain torch: fill_scan_plain's column plus
     the Merge term b = b + cg * (roll(prev2) / sprev) before the seed,
     prev2 the column two back and sprev the scale applied to the
     previous column (0 and 1 at the first column), each quotient,
@@ -273,14 +275,13 @@ def _bind(lib: ctypes.CDLL, name: str, n_ptr: int):
     return fn
 
 
-def _launch(entry: str, what: str, coeffs, mask, seed, seedcol,
-            backward: bool):
-    """Check the scan's operands and launch one csrc/fill_scan.cu entry on
-    the current stream; coeffs are the (R, nc, W) coefficient planes."""
+def _launch(coeffs, mask, seed, seedcol, backward: bool):
+    """Check the scan's operands and launch csrc/fill_scan.cu on the
+    current stream; coeffs are the (R, nc, W) planes cm, cd, cc."""
     cm = coeffs[0]
     R, nc, W = cm.shape
     dev = cm.device
-    for name, x in zip(("cm", "cd", "cc", "cg"), coeffs):
+    for name, x in zip(("cm", "cd", "cc"), coeffs):
         _check_f32(name, x, (R, nc, W), dev)
     _check_f32("mask", mask, (R, nc), dev)
     _check_f32("seed", seed, (R, W), dev)
@@ -289,16 +290,16 @@ def _launch(entry: str, what: str, coeffs, mask, seed, seedcol,
         raise ValueError("seedcol must be a contiguous (R,) int32 tensor "
                          f"on {dev}")
     if not 2 <= W <= 1024:
-        raise ValueError(f"{what}: band width {W} outside [2, 1024]")
+        raise ValueError(f"fill_scan: band width {W} outside [2, 1024]")
     vals = torch.empty_like(cm)
     ls = torch.empty(R, nc, dtype=torch.float32, device=dev)
-    fn = _bind(cuda_lib.load("fill_scan"), entry, len(coeffs) + 5)
+    fn = _bind(cuda_lib.load("fill_scan"), "pbccs_fill_scan", 8)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*(x.data_ptr() for x in coeffs), mask.data_ptr(),
                  seed.data_ptr(), seedcol.data_ptr(), vals.data_ptr(),
                  ls.data_ptr(), R, nc, W, int(backward), stream)
-    cuda_lib.check(err, what)
+    cuda_lib.check(err, "fill_scan")
     return vals, ls
 
 
@@ -312,32 +313,12 @@ def fill_scan(cm, cd, cc, mask, seed, seedcol, backward: bool):
         return fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward)
     if cm.device.type != "cuda":
         raise ValueError(f"fill_scan: unsupported device {cm.device}")
-    out = _launch("pbccs_fill_scan", "fill_scan", (cm, cd, cc), mask, seed,
-                  seedcol, backward)
+    out = _launch((cm, cd, cc), mask, seed, seedcol, backward)
     fill_scan.launches += 1
     return out
 
 
 fill_scan.launches = 0
-
-
-def fill_scan_merge(cm, cd, cc, cg, mask, seed, seedcol, backward: bool):
-    """The K2 column scan (`_run_fill` with cg, the Quiver fills):
-    fill_scan's operands plus the Merge coefficients cg (R, nc, W).  CPU
-    tensors run fill_scan_merge_plain; CUDA tensors launch the merge
-    entry of csrc/fill_scan.cu on the current stream (no fallback)."""
-    if cm.device.type == "cpu":
-        return fill_scan_merge_plain(cm, cd, cc, cg, mask, seed, seedcol,
-                                     backward)
-    if cm.device.type != "cuda":
-        raise ValueError(f"fill_scan_merge: unsupported device {cm.device}")
-    out = _launch("pbccs_fill_scan_merge", "fill_scan_merge",
-                  (cm, cd, cc, cg), mask, seed, seedcol, backward)
-    fill_scan_merge.launches += 1
-    return out
-
-
-fill_scan_merge.launches = 0
 
 
 # --------------------------------------------------------------------------

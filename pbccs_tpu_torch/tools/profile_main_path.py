@@ -14,7 +14,8 @@ the draw's second ZMW and profiling its first.  Prints one JSON line:
 host-draft and polish wall seconds, device busy time (the union of CUDA
 kernel intervals) and the device's idle share of the polish wall time,
 the number of kernel launches, and CUDA time grouped by kernel
-(fill_scan, dense_score, and PyTorch's own kernels by operator).  Needs
+(fill_scan, quiver_fill, dense_score, and PyTorch's own kernels by
+operator).  Needs
 a CUDA device; exits non-zero without one."""
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ def kernel_group(name: str) -> str:
     """A short group name for a CUDA kernel: our kernels by name,
     PyTorch's by the functor or operator its template names."""
     name = name.replace("(anonymous namespace)::", "")
-    if name.startswith(("fill_scan_kernel", "dense_score_kernel")):
+    if name.startswith(("fill_scan_kernel", "quiver_fill_kernel",
+                        "dense_score_kernel")):
         return name.split("(")[0]
     for pat in (r"where_kernel", r"\w*Functor\w*<\w+>", r"\w+_kernel\w*"):
         m = re.search(pat, name)

@@ -8,9 +8,8 @@ conftest:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
-Tolerances: fills (K1 and the Quiver K2) bitwise equal to the plain
-scan (same association, -fmad=false; log-likelihoods also within the
-1e-4 contract); dense
+Tolerances: fills (K1 and the Quiver K2) bitwise equal to their plain
+versions (same association, -fmad=false -ftz=true); dense
 interior scores rtol 2e-5 / atol 2e-3 (the reductions sum lanes in
 another order); the card's process_chunks agrees with the CPU's on the
 consensus and within 1 QV."""
@@ -98,26 +97,36 @@ def test_fill_scan_kernel_matches_plain(cuda, W, backward):
     np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=1e-6)
 
 
-def _quiver_case(seed: int, L: int, n_reads: int, dev):
-    """One simulated ZMW's reads against their true template windows,
-    flat default QV tracks, as the Quiver fills' batch inputs."""
+def _quiver_rows(seed: int, L: int, n_reads: int, dev):
+    """K2's inputs for one simulated ZMW (flat default QV tracks): each
+    read against its true template window, then read 0 against an empty
+    window (J = 0), a 50-base read against a 50-base window (I < W) and
+    read 1 against read 0's window -- R = n_reads + 3 rows, indexed into
+    (n_reads + 1) reads and (n_reads + 2) windows."""
     from pbccs_tpu_torch.models.quiver.features import flat_default_features
     from pbccs_tpu_torch.models.quiver.recursor import (feature_arrays,
                                                         stack_features)
 
     rng = np.random.default_rng(seed)
     tpl, reads, strands, _ = simulate_zmw(rng, L, n_reads)
+    reads = list(reads) + [np.asarray(reads[0])[:50]]
     feats = [flat_default_features(r) for r in reads]
-    wins = np.stack([params.revcomp(tpl) if s else tpl for s in strands])
     imax = max(len(f) for f in feats)
-    t = lambda a: torch.as_tensor(np.asarray(a), device=dev)  # noqa: E731
+    wins = np.full((n_reads + 2, L), 4, np.int8)
+    for i, s in enumerate(strands):
+        wins[i] = params.revcomp(tpl) if s else tpl
+    wins[n_reads + 1, :50] = tpl[:50]
+    wlens = [L] * n_reads + [0, 50]
+    row_read = list(range(n_reads)) + [0, n_reads, 1]
+    row_win = list(range(n_reads)) + [n_reads, n_reads + 1, 0]
+    t = lambda a, d=torch.int32: torch.as_tensor(  # noqa: E731
+        np.asarray(a), device=dev).to(d)
     return (stack_features([feature_arrays(f, imax, dev) for f in feats]),
-            t([len(f) for f in feats]), t(wins), t([L] * n_reads))
+            t([len(f) for f in feats]), t(wins, torch.int8), t(wlens),
+            t(row_read), t(row_win))
 
 
-@pytest.mark.parametrize("moves", ["basic", "all"])
-@pytest.mark.parametrize("backward", [False, True])
-def test_fill_scan_merge_kernel_matches_plain(cuda, moves, backward):
+def _quiver_fill_args(cuda, moves, W=96):
     from pbccs_tpu_torch.models.quiver import fill as qf
     from pbccs_tpu_torch.models.quiver.params import (ALL_MOVES,
                                                       BASIC_MOVES,
@@ -125,16 +134,51 @@ def test_fill_scan_merge_kernel_matches_plain(cuda, moves, backward):
 
     cfg = QuiverConfig(moves_available=ALL_MOVES if moves == "all"
                        else BASIC_MOVES)
-    feat, rlens, tpls, tlens = _quiver_case(24, 300, 6, cuda)
-    ops, _ = qf.coefficients(feat, rlens, tpls, tlens, cfg,
-                             cfg.banding.band_width, backward)
-    before = fc.fill_scan_merge.launches
-    vk, lk = fc.fill_scan_merge(*ops, backward)
-    assert fc.fill_scan_merge.launches == before + 1
-    vp, lp = fc.fill_scan_merge_plain(*ops, backward)
+    feat, rlens, wins, wlens, rr, rw = _quiver_rows(24, 300, 6, cuda)
+    offsets = band_offsets(rlens[rr.long()], wlens[rw.long()],
+                           wins.shape[1] + 1, W)
+    return (qf.emission_tables(feat, cfg), rlens, wins, wlens, rr, rw,
+            offsets, W, moves == "all")
+
+
+#: every band width csrc/quiver_fill.cu is built for (W / 32 = 1..4 slots)
+K2_WIDTHS = [32, 64, 96, 128]
+
+
+@pytest.mark.parametrize("W", K2_WIDTHS)
+@pytest.mark.parametrize("moves", ["basic", "all"])
+@pytest.mark.parametrize("backward", [False, True])
+def test_quiver_fill_kernel_matches_plain(cuda, W, moves, backward):
+    """K2 against its plain version at every built band width: band
+    values, log-scales and final cells bitwise, on 9 rows (not a multiple
+    of the 4 rows per block), one with an empty window and one 50-base
+    read (shorter than W from W = 64 on)."""
+    from pbccs_tpu_torch.ops import quiver_fill_cuda as qk
+
+    args = _quiver_fill_args(cuda, moves, W)
+    before = qk.quiver_fill.launches
+    got = qk.quiver_fill(*args, backward)
+    assert qk.quiver_fill.launches == before + 1
+    want = qk.quiver_fill_plain(*args, backward)
     torch.cuda.synchronize()
-    assert torch.equal(vk, vp)
-    np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=1e-6)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.isfinite(got[2]).all() and (got[2][:6] > 0).all()
+
+
+@pytest.mark.parametrize("W", K2_WIDTHS)
+@pytest.mark.parametrize("backward", [False, True])
+def test_quiver_fill_ll_mode_matches_vals_mode(cuda, W, backward):
+    """The log-likelihood-only mode gives bitwise the log-scales and final
+    cells of the band-value mode, and no band values."""
+    from pbccs_tpu_torch.ops import quiver_fill_cuda as qk
+
+    args = _quiver_fill_args(cuda, "all", W)
+    vals, ls, fin = qk.quiver_fill(*args, backward)
+    none, ls_b, fin_b = qk.quiver_fill(*args, backward, vals=False)
+    torch.cuda.synchronize()
+    assert none is None
+    assert torch.equal(ls, ls_b) and torch.equal(fin, fin_b)
 
 
 def test_quiver_process_chunks_card_matches_cpu(cuda):
@@ -146,9 +190,11 @@ def test_quiver_process_chunks_card_matches_cpu(cuda):
     chunks = [Chunk("q", [Subread(f"q/{i}", r) for i, r in enumerate(reads)],
                     snr)]
     settings = ConsensusSettings(model="quiver")
-    before = fc.fill_scan_merge.launches
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
+
+    before = quiver_fill.launches
     gpu = process_chunks(chunks, settings)
-    assert fc.fill_scan_merge.launches > before
+    assert quiver_fill.launches > before
     cpu = process_chunks(chunks, settings, device="cpu")
     assert gpu.counts == cpu.counts and len(gpu.results) == 1
     a, b = gpu.results[0], cpu.results[0]
@@ -196,8 +242,24 @@ def test_wrappers_check_inputs(cuda):
     with pytest.raises(ValueError):
         fc.fill_scan(x.float(), x.float(), x.float(), m, s,
                      col.long(), False)
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
+
+    args = list(_quiver_fill_args(cuda, "all", W=64))
+    with pytest.raises(ValueError):                   # W % 32 != 0
+        quiver_fill(*args[:7], 48, True, False)
+    bad = list(args)
+    bad[0] = args[0].double()
     with pytest.raises(TypeError):
-        fc.fill_scan_merge(x, x, x, x, m, s, col, False)
+        quiver_fill(*bad, False)
+    bad = list(args)
+    bad[2] = args[2].long()
+    with pytest.raises(TypeError):
+        quiver_fill(*bad, False)
+    for i in (0, 4, 6):                               # one tensor on the CPU
+        bad = list(args)
+        bad[i] = args[i].cpu()
+        with pytest.raises(ValueError):
+            quiver_fill(*bad, False)
 
 
 def test_process_chunks_card_matches_cpu(cuda):

@@ -176,14 +176,16 @@ def test_wrappers_reject_unsupported_devices():
     import torch
 
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan, fill_scan_merge
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
     x = torch.zeros(1, 2, 4, device="meta")
     with pytest.raises(ValueError):
         fill_scan(x, x, x, x[:, :, 0], x[:, 0], x[:, 0, 0].int(), False)
+    i = x[:, 0, 0].int()
     with pytest.raises(ValueError):
-        fill_scan_merge(x, x, x, x, x[:, :, 0], x[:, 0], x[:, 0, 0].int(),
-                        False)
+        quiver_fill(x, i, x[0].to(torch.int8), i, i, i, x[:, :, 0].int(),
+                    32, True, False)
     with pytest.raises(ValueError):
         dense_score(*([x] * 12))
 
