@@ -9,17 +9,20 @@ script exits non-zero):
      build of every kernel (all sources compiled in parallel) with the
      ptxas register / shared-memory report, and the host draft stage's
      native library (make, when the checkout has none yet);
-  2. fill_scan (K1): simulated 2 kb, 3-10-pass reads at the main path's
-     shapes; the kernel against its plain torch version on the card for
-     forward and backward fills, at the schedule's W (96) and the 2x
-     retry's W (192): log-likelihoods within 1e-4 absolute, band values
-     within 1e-5 relative; CUDA-event times of both;
+  2. arrow_fill (K1): simulated 2 kb, 3-10-pass reads at the main path's
+     shapes (384 reads, 2113 columns); the kernel against its plain torch
+     version on the card at the schedule's W (96) and the 2x retry's W
+     (192), forward, backward and both in one launch (the launch the
+     main path makes): band values bitwise, log-scales within 1e-6
+     relative; CUDA-event times of each launch and of the plain version;
+     the bound counted by operation type (k1_bound);
   3. dense_score (K3): on the W=96 fills of phase 2, the kernel against
      its plain version on interior slots (rtol 2e-5, atol 2e-3); times;
   4. main_path: process_chunks over 64 simulated ZMWs (2 kb, 3-10 passes,
      two batches of 32) on the card, with the launch counters zeroed
      just before and read just after; tally, yield, identity to the
-     true template, wall time, ZMW/s, peak device memory;
+     true template, wall time, ZMW/s, peak device memory, and the calls
+     of the plain version's coefficient precompute (must be none);
   5. cross_device: 4 ZMWs of the draw through process_chunks on the card
      and on the CPU: same consensus sequences, QVs within 1;
   6. quiver_fill (K2): the Quiver path's mutation-scoring fills of a
@@ -74,16 +77,15 @@ BATCH = 32
 N_CROSS = 4
 N_QUIVER = 4
 QUIVER_SMALL = (300, 5)     # template length, passes of the card-vs-CPU ZMW
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
-# float32 operations/s outside the tensor cores
+# published peak of one H100 SXM (NVIDIA data sheet): HBM bytes/s
 PEAK_BYTES = 3.35e12
-PEAK_F32 = 67e12
 # issue rates of its 132 SMs at the data sheet's 1.98 GHz boost clock, by
 # operation type (CUDA C++ Programming Guide, throughput of native
 # arithmetic instructions, compute capability 9.0, results per clock per
-# SM): 128 float32 adds or multiplies (PEAK_F32 counts a fused
-# multiply-add as two operations), 64 32-bit integer adds, compares,
-# min/max and logic operations (selects counted with them)
+# SM): 128 float32 adds or multiplies (the data sheet's 67 TFLOP/s counts
+# a fused multiply-add as two; the kernels build with -fmad=false, so
+# each add or multiply is one instruction), 64 32-bit integer adds,
+# compares, min/max and logic operations (selects counted with them)
 SM_CLOCKS = 132 * 1.98e9
 RATE_F32_OP = 128 * SM_CLOCKS
 RATE_INT_OP = 64 * SM_CLOCKS
@@ -168,8 +170,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
-    t_b, t_o = n_bytes / PEAK_BYTES, n_ops / PEAK_F32
+def bound_ms(n_bytes: float, n_f32: float) -> tuple[float, str]:
+    """(bound ms, bound_by) of bytes at PEAK_BYTES against float32 adds
+    and multiplies at RATE_F32_OP."""
+    t_b, t_o = n_bytes / PEAK_BYTES, n_f32 / RATE_F32_OP
     return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
 
 
@@ -225,54 +229,118 @@ def kernel_fixture(chunks, device):
                            Imax=pol._Imax))
 
 
+#: per lane and column of csrc/arrow_fill.cu, its integer, compare,
+#: select and logic operations, counted in the kernel body per held slot
+#: (forward, backward): the valid row 3, the emission and insertion
+#: selects 4, the match factor 2 / 5, the match gate (source row and
+#: band test) 6, the deletion gate 5, the insertion gate and scan cut 5,
+#: the dead / pinned-column selects 3, the seed-lane test 2 and the
+#: output select 1.  The layout's shuffles, roll selects and read-base
+#: reload tests are not counted.
+K1_INT_OPS = {False: 31, True: 34}
+
+
+def k1_bound(reads, tpls, W: int, dirs):
+    """(bound ms, bound_by, bytes, ops) of one K1 launch over the
+    directions `dirs` (False forward, True backward): each input read once
+    (reads, template windows, transitions, lengths, band offsets), each
+    output written once (band values and log-scales per direction); per
+    lane of every column K1_INT_OPS at RATE_INT_OP and 6 + 3 ceil(log2 W)
+    float32 operations at RATE_F32_OP (the emission product, the match
+    and deletion products and their sum, 3 per scan step, the column max,
+    the scaling divide).  The two pipes issue side by side, so the
+    operations take the longer of their two times; `ops` is (integer,
+    float32)."""
+    R, Imax = reads.shape
+    Jmax = tpls.shape[1]
+    nc = Jmax + 1
+    n_bytes = (R * Imax + R * Jmax + 16 * R * Jmax + 4 * (2 * R + R * nc)
+               + 4 * len(dirs) * (R * nc * W + R * nc))
+    cells = R * nc * W
+    n_int = cells * sum(K1_INT_OPS[d] for d in dirs)
+    n_f32 = cells * len(dirs) * (6 + 3 * math.ceil(math.log2(W)))
+    t_b = n_bytes / PEAK_BYTES
+    t_o = max(n_int / RATE_INT_OP, n_f32 / RATE_F32_OP)
+    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
+            n_bytes, (n_int, n_f32))
+
+
+def timed(fn):
+    """(fn(), its milliseconds by CUDA events) of one call."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+#: the launches phase 2 times: directions of each
+K1_MODES = {"fused": (False, True), "forward": (False,), "backward": (True,)}
+
+
 def phase_fill(fx) -> dict:
     from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
     from pbccs_tpu_torch.ops.fwdbwd import BandedMatrix, band_offsets
 
-    reads, rlens = fx["reads"].to(torch.int32), fx["rlens"].to(torch.int32)
-    tpls, trans = fx["win_tpl"].to(torch.int32), fx["win_trans"]
-    J = fx["wlens"].to(torch.int32)
+    reads = fx["reads"].to(torch.int8).contiguous()
+    rlens = fx["rlens"].to(torch.int32).contiguous()
+    tpls = fx["win_tpl"].to(torch.int8).contiguous()
+    trans = fx["win_trans"].float().contiguous()
+    J = fx["wlens"].to(torch.int32).contiguous()
     R, Jmax = tpls.shape
     nc = Jmax + 1
-    eps = fc.MISMATCH_PROBABILITY
     rows, kept = [], {}
-    launches0 = fc.fill_scan.launches
+    launches0 = fc.arrow_fill.launches
     for W in (fx["W"], 2 * fx["W"]):
         offsets = band_offsets(rlens, J, nc, W)
-        for backward in (False, True):
-            coeffs = fc._backward_coeffs if backward else fc._forward_coeffs
-            args = coeffs(reads, rlens, tpls, trans, J, offsets, W, eps)
-            args = [a.contiguous() for a in args]
-            vk, lk = fc.fill_scan(*args, backward)
-            vp, lp = fc.fill_scan_plain(*args, backward)
+        args = (reads, rlens, tpls, trans, J, offsets, W,
+                fc.MISMATCH_PROBABILITY)
+
+        def loglik(d, v, ls):
+            bm = BandedMatrix(v, offsets, ls)
+            return (fc.backward_loglik_batch(bm, J) if d
+                    else fc.forward_loglik_batch(bm, rlens, J))
+
+        plain, plain_ms = {}, {}
+        for d in (False, True):
+            out, plain_ms[d] = timed(lambda: fc.arrow_fill_plain(
+                *args, alpha=not d, beta=d))
+            plain[d] = out[d]
+        for mode, dirs in K1_MODES.items():
+            call = lambda: fc.arrow_fill(  # noqa: E731
+                *args, alpha=False in dirs, beta=True in dirs)
+            got = call()
             torch.cuda.synchronize()
-            if backward:
-                ll = lambda v, s: fc.backward_loglik_batch(  # noqa: E731
-                    BandedMatrix(v, offsets, s), J)
-            else:
-                ll = lambda v, s: fc.forward_loglik_batch(  # noqa: E731
-                    BandedMatrix(v, offsets, s), rlens, J)
-            ll_err = float((ll(vk, lk) - ll(vp, lp)).abs().max())
-            rel = float(((vk - vp).abs()
-                         / vp.abs().clamp(min=1e-30)).max())
-            ms = cuda_ms(lambda: fc.fill_scan(*args, backward), 5)
-            plain_ms = cuda_ms(lambda: fc.fill_scan_plain(*args, backward), 1)
-            S = math.ceil(math.log2(W))
-            n_bytes = 4 * (4 * R * nc * W + 2 * R * nc + R * W + R)
-            n_ops = R * nc * W * (3 + 3 * S + 2)
-            b_ms, b_by = bound_ms(n_bytes, n_ops)
-            row = {"W": W, "backward": backward, "ll_max_abs_err": ll_err,
-                   "vals_max_rel_err": rel, "ms": ms, "plain_ms": plain_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes}
+            vals_bitwise = all(torch.equal(got[d][0], plain[d][0])
+                               for d in dirs)
+            ls_bitwise = all(torch.equal(got[d][1], plain[d][1])
+                             for d in dirs)
+            ls_rel = max(float(((got[d][1] - plain[d][1]).abs()
+                                / plain[d][1].abs().clamp(min=1e-30)).max())
+                         for d in dirs)
+            ll_err = max(float((loglik(d, *got[d]) - loglik(d, *plain[d]))
+                               .abs().max()) for d in dirs)
+            if mode == "fused" and W == fx["W"]:
+                kept["fwd"] = BandedMatrix(got[0][0], offsets, got[0][1])
+                kept["bwd"] = BandedMatrix(got[1][0], offsets, got[1][1])
+            del got
+            ms = cuda_ms(call, 5)
+            b_ms, b_by, n_bytes, n_ops = k1_bound(reads, tpls, W, dirs)
+            row = {"W": W, "mode": mode, "vals_bitwise": vals_bitwise,
+                   "ls_bitwise": ls_bitwise, "ls_max_rel_err": ls_rel,
+                   "ll_max_abs_err": ll_err, "ms": ms,
+                   "plain_ms": sum(plain_ms[d] for d in dirs),
+                   "bound_ms": b_ms, "bound_by": b_by, "bytes": n_bytes,
+                   "ops": n_ops}
             rows.append(row)
-            if ll_err > 1e-4 or rel > 1e-5:
-                raise AssertionError(f"fill_scan disagrees with its plain "
+            if not vals_bitwise or ls_rel > 1e-6 or ll_err > 1e-4:
+                raise AssertionError(f"arrow_fill disagrees with its plain "
                                      f"version: {row}")
-            if W == fx["W"]:
-                kept["bwd" if backward else "fwd"] = (
-                    BandedMatrix(vk, offsets, lk), row)
-    out = {"phase": "fill_scan", "reads": R, "nc": nc, "rows": rows,
-           "launches": fc.fill_scan.launches - launches0}
+        del plain
+    out = {"phase": "arrow_fill", "reads": R, "nc": nc, "rows": rows,
+           "launches": fc.arrow_fill.launches - launches0}
     emit(out)
     return out, kept
 
@@ -282,8 +350,7 @@ def phase_dense(fx, kept) -> dict:
     from pbccs_tpu_torch.ops.mutation_score import scale_prefix, scale_suffix
 
     W = fx["W"]
-    alpha, _ = kept["fwd"]
-    beta, _ = kept["bwd"]
+    alpha, beta = kept["fwd"], kept["bwd"]
     R, Jm = fx["win_tpl"].shape
     nc = Jm + 1
     rbase, rnext = ds.band_read_windows(fx["reads"], alpha.offsets, W)
@@ -330,21 +397,37 @@ def phase_dense(fx, kept) -> dict:
 
 
 def phase_main(chunks, truths) -> dict:
+    from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
     from pbccs_tpu_torch.pipeline import Failure, ResultTally, process_chunks
 
+    # the plain version's coefficient precompute, counted: K1 builds its
+    # coefficients in the kernel, so the card's path must never call it
+    planes = {"built": 0}
+    originals = fc._forward_coeffs, fc._backward_coeffs
+
+    def counted(fn):
+        def wrapper(*args, **kwargs):
+            planes["built"] += 1
+            return fn(*args, **kwargs)
+        return wrapper
+
+    fc._forward_coeffs, fc._backward_coeffs = map(counted, originals)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fill_scan.launches = 0
+    fc.arrow_fill.launches = 0
     dense_score.launches = 0
     t0 = time.monotonic()
     tally = ResultTally()
-    for lo in range(0, len(chunks), BATCH):
-        tally.merge(process_chunks(chunks[lo: lo + BATCH], device="cuda"))
-    torch.cuda.synchronize()
+    try:
+        for lo in range(0, len(chunks), BATCH):
+            tally.merge(process_chunks(chunks[lo: lo + BATCH],
+                                       device="cuda"))
+        torch.cuda.synchronize()
+    finally:
+        fc._forward_coeffs, fc._backward_coeffs = originals
     wall = time.monotonic() - t0
-    launches = {"fill_scan": fill_scan.launches,
+    launches = {"arrow_fill": fc.arrow_fill.launches,
                 "dense_score": dense_score.launches}
     truth = {c.id: t for c, t in zip(chunks, truths)}
     idents = [identity(r.sequence, truth[r.id]) for r in tally.results]
@@ -356,11 +439,13 @@ def phase_main(chunks, truths) -> dict:
            "exact": int(sum(i == 1.0 for i in idents)),
            "wall_s": wall, "zmw_per_s": len(chunks) / wall,
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
-           "launches": launches}
+           "launches": launches, "coefficient_planes_built": planes["built"]}
     emit(out)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
+    if planes["built"]:
+        raise AssertionError("the main path built K1 coefficient planes")
     if tally.counts[Failure.OTHER]:
         raise AssertionError("main path tallied ZMWs as Other")
     if tally.total != len(chunks):
@@ -567,20 +652,20 @@ def phase_quiver_fill(qx) -> dict:
 
 def _launch_counts() -> dict:
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import arrow_fill
     from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
-    return {"fill_scan": fill_scan.launches,
+    return {"arrow_fill": arrow_fill.launches,
             "quiver_fill": quiver_fill.launches,
             "dense_score": dense_score.launches}
 
 
 def _zero_launch_counts() -> None:
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import arrow_fill
     from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
-    fill_scan.launches = quiver_fill.launches = dense_score.launches = 0
+    arrow_fill.launches = quiver_fill.launches = dense_score.launches = 0
 
 
 def _same_results(a, b) -> tuple[bool, int]:
@@ -663,7 +748,7 @@ def fallback_tasks(rng):
 
 
 def phase_fallbacks(rng) -> dict:
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import arrow_fill
     from pbccs_tpu_torch.parallel import device_refine as dr
     from pbccs_tpu_torch.parallel.batch import (MIN_FAST_EDGE_WLEN,
                                                 BatchPolisher)
@@ -676,13 +761,13 @@ def phase_fallbacks(rng) -> dict:
             pol = BatchPolisher([task], device=dev)
             j0 = pol._Jmax
             st = pol._state
-            fill_scan.launches = 0
+            arrow_fill.launches = 0
             dr.score_slot_grid(st, pol._reads_dev, pol._rlens_dev,
                                pol._strands_dev, pol._tables_dev,
                                pol._real_dev, *dr.slot_grid(j0, st.tpl.device),
                                dr.slot_candidates(st.tpl, st.tlens),
                                min_fast_edge=MIN_FAST_EDGE_WLEN)
-            refills = fill_scan.launches
+            refills = arrow_fill.launches
             res = pol.refine()[0]
             qvs = pol.consensus_qvs()[0]
             got[dev] = dict(tpl=pol.tpls[0], res=vars(res), qvs=qvs,
@@ -738,18 +823,20 @@ def main() -> int:
     quiver = phase_quiver(chunks[:N_QUIVER], truths[:N_QUIVER], small)
     phase_fallbacks(rng)
 
-    fwd, bwd = kept["fwd"][1], kept["bwd"][1]
+    # K1's launch on the main path: alpha and beta together at the
+    # schedule's W
+    k1 = next(r for r in fill["rows"]
+              if r["mode"] == "fused" and r["W"] == fx["W"])
     mf, mb = k2["rows"][2:]
     kernels = [
-        {"name": "fill_scan", "route": "cuda",
-         "source": "pbccs_tpu_torch/csrc/fill_scan.cu",
+        {"name": "arrow_fill", "route": "cuda",
+         "source": "pbccs_tpu_torch/csrc/arrow_fill.cu",
          "replaces": "pbccs_tpu/ops/fwdbwd_pallas.py:320",
-         "launches": main_path["launches"]["fill_scan"],
-         "max_abs_err": max(fwd["ll_max_abs_err"], bwd["ll_max_abs_err"]),
-         "ms": (fwd["ms"] + bwd["ms"]) / 2,
-         "plain_ms": (fwd["plain_ms"] + bwd["plain_ms"]) / 2,
-         "bound_ms": (fwd["bound_ms"] + bwd["bound_ms"]) / 2,
-         "bound_by": fwd["bound_by"], "library_ms": None},
+         "launches": main_path["launches"]["arrow_fill"],
+         "max_abs_err": max(r["ll_max_abs_err"] for r in fill["rows"]),
+         "ms": k1["ms"], "plain_ms": k1["plain_ms"],
+         "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"],
+         "library_ms": None},
         {"name": "quiver_fill", "route": "cuda",
          "source": "pbccs_tpu_torch/csrc/quiver_fill.cu",
          "replaces": "pbccs_tpu/ops/fwdbwd_pallas.py:320",

@@ -65,55 +65,19 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "band_scan.cuh"
+
 namespace {
+
+using band_scan::band_row;
+using band_scan::in_band;
+using band_scan::roll;
+using band_scan::scan;
+using band_scan::warp_max;
 
 constexpr int kCols = 12;       // emission table row (ops/quiver_fill_cuda.py)
 constexpr int kMatch = 10, kDeln = 11;
 constexpr int kWarps = 4;       // fill rows per block
-constexpr unsigned kFull = 0xffffffffu;
-
-// out[L] = in[(L - D) mod W], W = 32 * NS, lane L = slot * 32 + thread.
-template <int NS, int D>
-__device__ __forceinline__ void roll(const float (&in)[NS], float (&out)[NS],
-                                     int tid) {
-  constexpr int Q = D / 32, R = D % 32;
-  if constexpr (R == 0) {
-#pragma unroll
-    for (int s = 0; s < NS; ++s) out[s] = in[((s - Q) % NS + NS) % NS];
-  } else {
-    float got[NS];
-    const int src = (tid - R) & 31;
-#pragma unroll
-    for (int s = 0; s < NS; ++s) got[s] = __shfl_sync(kFull, in[s], src);
-    const bool wrap = tid < R;
-#pragma unroll
-    for (int s = 0; s < NS; ++s)
-      out[s] = wrap ? got[((s - Q - 1) % NS + 2 * NS) % NS]
-                    : got[((s - Q) % NS + NS) % NS];
-  }
-}
-
-// The in-column circular Hillis-Steele scan, steps d = STEP, 2 STEP, ...
-template <int NS, bool BWD, int STEP>
-__device__ __forceinline__ void scan(float (&b)[NS], float (&c)[NS],
-                                     int tid) {
-  constexpr int W = 32 * NS;
-  if constexpr (STEP < W) {
-    float bs[NS], cs[NS];
-    roll<NS, BWD ? W - STEP : STEP>(b, bs, tid);
-    roll<NS, BWD ? W - STEP : STEP>(c, cs, tid);
-#pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      b[s] = b[s] + c[s] * bs[s];
-      c[s] = c[s] * cs[s];
-    }
-    scan<NS, BWD, 2 * STEP>(b, c, tid);
-  }
-}
-
-__device__ __forceinline__ bool in_band(int row, int o, int W) {
-  return row >= o && row < o + W;
-}
 
 template <int NS, bool BWD>
 __global__ void __launch_bounds__(32 * kWarps)
@@ -180,15 +144,9 @@ quiver_fill_kernel(const float* __restrict__ tab, int P,
     crow[s] = (row);                                                         \
   }
 
-  auto row_of = [&](int o, int s) {
-    const int q = o % W;
-    const int L = s * 32 + tid;
-    return o - q + L + (L < q ? W : 0);
-  };
-
 #pragma unroll
   for (int s = 0; s < NS; ++s) {
-    const int rw = row_of(o0, s);
+    const int rw = band_row<W>(o0, s, tid);
     QF_LOAD(s, rw);
   }
 
@@ -236,7 +194,7 @@ quiver_fill_kernel(const float* __restrict__ tab, int P,
     // while column k scans
 #pragma unroll
     for (int s = 0; s < NS; ++s) {
-      const int rw = row_of(on, s);
+      const int rw = band_row<W>(on, s, tid);
       if (rw != crow[s]) QF_LOAD(s, rw);
     }
     const int on3 = off_at(j + 3 * dj);
@@ -254,12 +212,7 @@ quiver_fill_kernel(const float* __restrict__ tab, int P,
     }
     scan<NS, BWD, 1>(b, c, tid);
 
-    float cmax = b[0];
-#pragma unroll
-    for (int s = 1; s < NS; ++s) cmax = fmaxf(cmax, b[s]);
-#pragma unroll
-    for (int x = 16; x > 0; x >>= 1)
-      cmax = fmaxf(cmax, __shfl_xor_sync(kFull, cmax, x));
+    const float cmax = warp_max<NS>(b);
     const bool do_scale = mask && cmax > 0.0f;
     const float scale = do_scale ? cmax : 1.0f;
     const int kout = BWD ? nc - 1 - k : k;

@@ -21,6 +21,7 @@ from pbccs_tpu_torch.ops.fwdbwd import (MAX_BAND_ADVANCE, BandedMatrix,
                                         guided_band_offsets)
 from pbccs_tpu_torch.ops.fwdbwd_cuda import (backward_batch,
                                              backward_loglik_batch,
+                                             forward_backward_batch,
                                              forward_batch,
                                              forward_loglik_batch)
 from pbccs_tpu_torch.ops.mutation_score import scale_prefix, scale_suffix
@@ -109,22 +110,29 @@ def fill_alpha_beta_batch(reads, rlens, win_tpl, win_trans, wlens,
     (fwdbwd.guided_band_offsets) and refills that many times, keeping per
     read whichever alpha has the better log-likelihood (never trade down:
     the first fill may have locked onto the right ridge).  Beta then runs
-    on alpha's band."""
-    alpha, ll_a = _fill_alpha(reads, rlens, win_tpl, win_trans, wlens,
-                              width, None)
-    for _ in range(guided_passes):
-        g_off = guided_band_offsets(alpha.vals, alpha.offsets, rlens, wlens,
-                                    width)
-        alpha_g, ll_g = _fill_alpha(reads, rlens, win_tpl, win_trans, wlens,
-                                    width, g_off)
-        keep = ll_g >= ll_a
-        alpha = BandedMatrix(
-            torch.where(keep[:, None, None], alpha_g.vals, alpha.vals),
-            torch.where(keep[:, None], alpha_g.offsets, alpha.offsets),
-            torch.where(keep[:, None], alpha_g.log_scales, alpha.log_scales))
-        ll_a = torch.where(keep, ll_g, ll_a)
-    beta = backward_batch(reads, rlens, win_tpl, win_trans, wlens, width,
-                          offsets=alpha.offsets if guided_passes else None)
+    on alpha's band.  Without guided passes both fills run on the diagonal
+    band, in one K1 launch on the card."""
+    if not guided_passes:
+        alpha, beta = forward_backward_batch(reads, rlens, win_tpl,
+                                             win_trans, wlens, width)
+        ll_a = forward_loglik_batch(alpha, rlens, wlens)
+    else:
+        alpha, ll_a = _fill_alpha(reads, rlens, win_tpl, win_trans, wlens,
+                                  width, None)
+        for _ in range(guided_passes):
+            g_off = guided_band_offsets(alpha.vals, alpha.offsets, rlens,
+                                        wlens, width)
+            alpha_g, ll_g = _fill_alpha(reads, rlens, win_tpl, win_trans,
+                                        wlens, width, g_off)
+            keep = ll_g >= ll_a
+            alpha = BandedMatrix(
+                torch.where(keep[:, None, None], alpha_g.vals, alpha.vals),
+                torch.where(keep[:, None], alpha_g.offsets, alpha.offsets),
+                torch.where(keep[:, None], alpha_g.log_scales,
+                            alpha.log_scales))
+            ll_a = torch.where(keep, ll_g, ll_a)
+        beta = backward_batch(reads, rlens, win_tpl, win_trans, wlens, width,
+                              offsets=alpha.offsets)
     ll_b = backward_loglik_batch(beta, wlens)
     return FillState(alpha, beta, ll_a, ll_b, scale_prefix(alpha.log_scales),
                      scale_suffix(beta.log_scales))

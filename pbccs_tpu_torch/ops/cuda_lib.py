@@ -4,16 +4,18 @@ Each source is compiled by nvcc for Hopper (sm_90a) into a shared library
 with a plain C interface and bound with ctypes; no PyTorch headers are
 compiled, so a build takes seconds.  Libraries land in build/kernels/ at
 the repository root (listed in .gitignore) and are rebuilt when missing
-or older than their source.  Nothing here runs at import time.
+or older than their source or than any shared header (csrc/*.cuh).
+Nothing here runs at import time.
 
 Every kernel entry point has the signature convention
     int pbccs_<name>(<device pointers>..., <ints>..., void* stream)
 and returns cudaGetLastError() after its launch; the Python wrappers
-raise on a non-zero return."""
+check their tensors (`check_tensor`) and raise on a non-zero return."""
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -33,7 +35,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-ftz=true", "-Xptxas", "-v"]
 
-KERNELS = ("fill_scan", "quiver_fill", "dense_score")
+KERNELS = ("arrow_fill", "quiver_fill", "dense_score")
 
 _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
@@ -59,8 +61,10 @@ def _paths(name: str) -> tuple[str, str]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return (not os.path.exists(lib)
-            or os.path.getmtime(src) > os.path.getmtime(lib))
+    if not os.path.exists(lib):
+        return True
+    deps = [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
+    return max(map(os.path.getmtime, deps)) > os.path.getmtime(lib)
 
 
 def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
@@ -110,3 +114,13 @@ def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def check_tensor(what: str, name: str, x, dtype, ndim: int) -> None:
+    """Raise unless x is a contiguous `ndim`-d tensor of `dtype` (the
+    kernels take raw pointers and fixed element types)."""
+    if x.dtype != dtype:
+        raise TypeError(f"{what}: {name} must be {dtype}, got {x.dtype}")
+    if x.dim() != ndim or not x.is_contiguous():
+        raise ValueError(f"{what}: {name} must be a contiguous {ndim}-d "
+                         f"tensor, got shape {tuple(x.shape)}")

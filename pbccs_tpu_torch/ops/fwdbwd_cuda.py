@@ -1,36 +1,36 @@
-"""Banded Arrow forward/backward fills: coefficient precompute + the K1
-column-scan kernel (csrc/fill_scan.cu).
+"""Banded Arrow forward/backward fills: K1 (csrc/arrow_fill.cu) and its
+plain torch version.
 
-Port of pbccs_tpu.ops.fwdbwd_pallas.  A fill runs in two steps:
+Port of pbccs_tpu.ops.fwdbwd_pallas.  A fill computes, per read and column,
+the column recurrence over circular lanes (fwdbwd.BandedMatrix: cell
+(i, j) at lane i mod W)
 
-  1. a torch coefficient precompute: for every (read, column) the three
-     band-coefficient vectors of the column recurrence in circular lane
-     layout (fwdbwd.BandedMatrix: cell (i, j) at lane i mod W)
+    col[L] = cm[L] * roll(prev, +-1)[L]   (match from (i-+1, j-+1))
+           + cd[L] * prev[L]              (deletion from (i, j-+1))
+           + cc[L] * col[L-+1 circ]       (insertion, in-column)
 
-         col[L] = cm[L] * roll(prev, +-1)[L]   (match from (i-+1, j-+1))
-                + cd[L] * prev[L]              (deletion from (i, j-+1))
-                + cc[L] * col[L-+1 circ]       (insertion, in-column)
+with every cross-column band-membership mask folded into cm/cd and the
+circular scan's cut (the band's first row forward, last row backward)
+folded into cc, solved as a ceil(log2 W)-step circular Hillis-Steele scan
+and rescaled by the column max (reference ScaledMatrix,
+Matrix/ScaledMatrix-inl.hpp:74-123).
 
-     with every cross-column band-membership mask folded into cm/cd and
-     the circular scan's cut (the band's first row forward, last row
-     backward) folded into cc;
+`arrow_fill` is the kernel's wrapper: on CUDA tensors it launches K1, which
+builds each cell's coefficients itself from the reads, template windows,
+transitions and band offsets (no (R, nc, W) coefficient plane exists on
+the card) and runs alpha and beta in one launch when both are asked for;
+on CPU tensors it runs `arrow_fill_plain`: the coefficient planes of
+`_forward_coeffs` / `_backward_coeffs`, then the column scan
+`fill_scan_plain`, a loop over columns.  The two agree bitwise.
 
-  2. the column scan (`fill_scan`): per column one lane roll, the
-     in-column recurrence as a ceil(log2 W)-step circular Hillis-Steele
-     scan, and the per-column max-rescale (reference ScaledMatrix,
-     Matrix/ScaledMatrix-inl.hpp:74-123).  On a CUDA tensor it launches
-     the hand-written kernel; on a CPU tensor it runs `fill_scan_plain`,
-     the same arithmetic as a loop over columns.
+The backward (beta) fill runs the scan in backward mode (rolls and scan
+the other circular direction) over kernel columns k holding beta column
+j = Jmax - k, and stores column k at output column nc-1-k, so the returned
+matrix is in natural column order.
 
-The backward (beta) fill reuses the scan in backward mode (rolls and scan
-run the other circular direction) over kernel columns k holding beta
-column j = Jmax - k, and stores column k at output column nc-1-k, so the
-returned matrix is in natural column order.
-
-Layout: the coefficient tensors are (R, nc, W), read-major, so a kernel
-block (one read) streams contiguous W-float rows; the TPU kernel's
-column-major (nc, R, W) layout existed for VMEM addressing and has no
-use here.  nc = Jmax + 1 (the TPU's 64-column padding is not needed)."""
+Layout: (R, nc, W), read-major; the TPU kernel's column-major (nc, R, W)
+layout existed for VMEM addressing and has no use here.  nc = Jmax + 1
+(the TPU's 64-column padding is not needed)."""
 
 from __future__ import annotations
 
@@ -50,6 +50,9 @@ from pbccs_tpu_torch.ops.fwdbwd import (BandedMatrix, band_offsets,
                                         circ_roll, circ_rows, ftz, in_band)
 
 _TINY = 1e-30
+#: band widths K1 is built for: 32 lanes per held slot, 1..8 slots but 7
+#: (csrc/arrow_fill.cu spills there)
+K1_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
 
 
 # --------------------------------------------------------------------------
@@ -73,6 +76,13 @@ def window_rows_circ(x: torch.Tensor, starts: torch.Tensor,
 def _clip_cols(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[:, clip(idx, 0, n-1)] along the column axis (axis 1)."""
     return x[:, idx.clamp(0, x.shape[1] - 1)]
+
+
+def _third(x: torch.Tensor) -> torch.Tensor:
+    """x / 3 as an IEEE float32 divide on every device, as K1 computes it
+    (PyTorch's CUDA kernels turn a Python-scalar divisor into a multiply
+    by its rounded reciprocal; a tensor divisor keeps the divide)."""
+    return x / torch.full((), 3.0, dtype=x.dtype, device=x.device)
 
 
 def _forward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
@@ -111,7 +121,7 @@ def _forward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
                      tr_prev[..., TRANS_DARK:TRANS_DARK + 1], 0.0)
     ins = torch.where(rbase == t_next,
                       tr_cur[..., TRANS_BRANCH:TRANS_BRANCH + 1],
-                      tr_cur[..., TRANS_STICK:TRANS_STICK + 1] / 3.0)
+                      _third(tr_cur[..., TRANS_STICK:TRANS_STICK + 1]))
     cc = torch.where(valid & (rows > 1) & (rows > o), ins, 0.0)
 
     # final pinned column j == J: alpha(I, J) = alpha(I-1, J-1) * em_last
@@ -171,7 +181,7 @@ def _backward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
                      & in_band(rows, o_j1, W),
                      tr_cur[..., TRANS_DARK:TRANS_DARK + 1], 0.0)
     ins = torch.where(nxt_match, tr_cur[..., TRANS_BRANCH:TRANS_BRANCH + 1],
-                      tr_cur[..., TRANS_STICK:TRANS_STICK + 1] / 3.0)
+                      _third(tr_cur[..., TRANS_STICK:TRANS_STICK + 1]))
     # rows < o + W - 1 cuts the reverse circular scan at the band's top row
     cc = torch.where(valid & (rows < I3 - 1) & (rows < o_j + W - 1), ins, 0.0)
 
@@ -195,7 +205,7 @@ def _backward_coeffs(reads, I, tpls, trans, J, offsets, W: int, eps: float):
 
 
 # --------------------------------------------------------------------------
-# the column scan: kernel wrapper and its plain version
+# the column scan, the plain version and the kernel's wrapper
 # --------------------------------------------------------------------------
 
 
@@ -255,70 +265,95 @@ def fill_scan_merge_plain(cm, cd, cc, cg, mask, seed, seedcol,
     return _scan_plain(cm, cd, cc, cg, mask, seed, seedcol, backward)
 
 
-def _check_f32(name: str, x: torch.Tensor, shape: tuple, dev) -> None:
-    if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
-    if x.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {x.dtype}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+def arrow_fill_plain(reads, rlens, tpls, trans, tlens, offsets, width: int,
+                     pr_miscall: float = MISMATCH_PROBABILITY,
+                     alpha: bool = True, beta: bool = True):
+    """arrow_fill in plain torch: per direction asked for, the coefficient
+    planes (_forward_coeffs / _backward_coeffs), then fill_scan_plain.
+    Returns ((vals, log-scales) or None for alpha, the same for beta)."""
+    I, J = rlens.to(torch.int32), tlens.to(torch.int32)
+    out = []
+    for backward, want in ((False, alpha), (True, beta)):
+        coeffs = _backward_coeffs if backward else _forward_coeffs
+        planes = coeffs(reads.to(torch.int32), I, tpls.to(torch.int32),
+                        trans.float(), J, offsets, width,
+                        pr_miscall) if want else None
+        out.append(fill_scan_plain(*(x.contiguous() for x in planes),
+                                   backward) if want else None)
+    return tuple(out)
 
 
-def _bind(lib: ctypes.CDLL, name: str, n_ptr: int):
-    fn = getattr(lib, name)
+_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
+
+
+def arrow_fill(reads, rlens, tpls, trans, tlens, offsets, width: int,
+               pr_miscall: float = MISMATCH_PROBABILITY, alpha: bool = True,
+               beta: bool = True):
+    """K1, the banded Arrow fills of R reads (the TPU `_run_fill` boundary
+    with its coefficient precompute): reads (R, Imax) int8 with lengths
+    rlens (R,) int32, template windows tpls (R, Jmax) int8 with lengths
+    tlens (R,) int32 and transitions trans (R, Jmax, 4) float32, band
+    offsets (R, Jmax + 1) int32; `alpha` / `beta` pick the directions, both
+    on the same offsets.  Returns ((vals (R, nc, W), log-scales (R, nc)) or
+    None for alpha, the same for beta).  CPU tensors run arrow_fill_plain;
+    CUDA tensors launch csrc/arrow_fill.cu once on the current stream, both
+    directions in that one launch (no fallback; W must be in K1_WIDTHS)."""
+    args = {"reads": (reads, torch.int8, 2), "rlens": (rlens, torch.int32, 1),
+            "tpls": (tpls, torch.int8, 2), "trans": (trans, torch.float32, 3),
+            "tlens": (tlens, torch.int32, 1),
+            "offsets": (offsets, torch.int32, 2)}
+    dev = offsets.device
+    for name, (x, _, _) in args.items():
+        if x.device != dev:
+            raise ValueError(f"arrow_fill: {name} is on {x.device}, "
+                             f"offsets on {dev}")
+    if dev.type == "cpu":
+        return arrow_fill_plain(reads, rlens, tpls, trans, tlens, offsets,
+                                width, pr_miscall, alpha, beta)
+    if dev.type != "cuda":
+        raise ValueError(f"arrow_fill: unsupported device {dev}")
+    for name, (x, dtype, ndim) in args.items():
+        cuda_lib.check_tensor("arrow_fill", name, x, dtype, ndim)
+    R, Imax = reads.shape
+    Jmax = tpls.shape[1]
+    nc = Jmax + 1
+    if width not in K1_WIDTHS:
+        raise ValueError(f"arrow_fill: band width {width} is not one of "
+                         f"{K1_WIDTHS}")
+    if Imax < 1 or Jmax < 1 or tuple(offsets.shape) != (R, nc) \
+            or tuple(trans.shape) != (R, Jmax, 4) \
+            or tuple(rlens.shape) != (R,) or tuple(tlens.shape) != (R,) \
+            or tpls.shape[0] != R:
+        raise ValueError("arrow_fill: shapes do not match: reads "
+                         f"{tuple(reads.shape)}, tpls {tuple(tpls.shape)}, "
+                         f"trans {tuple(trans.shape)}, offsets "
+                         f"{tuple(offsets.shape)}")
+    if trans.data_ptr() % 16:
+        raise ValueError("arrow_fill: trans must be 16-byte aligned")
+    if not (alpha or beta):
+        raise ValueError("arrow_fill: neither alpha nor beta asked for")
+    outs = [(torch.empty(R, nc, width, device=dev),
+             torch.empty(R, nc, device=dev)) if want else None
+            for want in (alpha, beta)]
+    ptrs = [p for o in outs
+            for p in ((o[0].data_ptr(), o[1].data_ptr()) if o else (None,) * 2)]
+    fn = cuda_lib.load("arrow_fill").pbccs_arrow_fill
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 4 \
-            + [ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(coeffs, mask, seed, seedcol, backward: bool):
-    """Check the scan's operands and launch csrc/fill_scan.cu on the
-    current stream; coeffs are the (R, nc, W) planes cm, cd, cc."""
-    cm = coeffs[0]
-    R, nc, W = cm.shape
-    dev = cm.device
-    for name, x in zip(("cm", "cd", "cc"), coeffs):
-        _check_f32(name, x, (R, nc, W), dev)
-    _check_f32("mask", mask, (R, nc), dev)
-    _check_f32("seed", seed, (R, W), dev)
-    if seedcol.device != dev or seedcol.dtype != torch.int32 \
-            or tuple(seedcol.shape) != (R,) or not seedcol.is_contiguous():
-        raise ValueError("seedcol must be a contiguous (R,) int32 tensor "
-                         f"on {dev}")
-    if not 2 <= W <= 1024:
-        raise ValueError(f"fill_scan: band width {W} outside [2, 1024]")
-    vals = torch.empty_like(cm)
-    ls = torch.empty(R, nc, dtype=torch.float32, device=dev)
-    fn = _bind(cuda_lib.load("fill_scan"), "pbccs_fill_scan", 8)
+    hit, miss = 1.0 - pr_miscall, pr_miscall / 3.0
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(*(x.data_ptr() for x in coeffs), mask.data_ptr(),
-                 seed.data_ptr(), seedcol.data_ptr(), vals.data_ptr(),
-                 ls.data_ptr(), R, nc, W, int(backward), stream)
-    cuda_lib.check(err, "fill_scan")
-    return vals, ls
+        err = fn(reads.data_ptr(), rlens.data_ptr(), tpls.data_ptr(),
+                 trans.data_ptr(), tlens.data_ptr(), offsets.data_ptr(),
+                 *ptrs, R, Imax, Jmax, width, hit, miss, stream)
+    cuda_lib.check(err, "arrow_fill")
+    arrow_fill.launches += 1
+    return tuple(outs)
 
 
-def fill_scan(cm, cd, cc, mask, seed, seedcol, backward: bool):
-    """The K1 column scan (the TPU `_run_fill` boundary): coefficients
-    (R, nc, W), mask (R, nc), seed (R, W), seedcol (R,) int32 in; vals
-    (R, nc, W) and log-scales (R, nc) out.  CPU tensors run
-    fill_scan_plain; CUDA tensors launch csrc/fill_scan.cu on the current
-    stream (no fallback)."""
-    if cm.device.type == "cpu":
-        return fill_scan_plain(cm, cd, cc, mask, seed, seedcol, backward)
-    if cm.device.type != "cuda":
-        raise ValueError(f"fill_scan: unsupported device {cm.device}")
-    out = _launch((cm, cd, cc), mask, seed, seedcol, backward)
-    fill_scan.launches += 1
-    return out
-
-
-fill_scan.launches = 0
+arrow_fill.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -338,21 +373,20 @@ def _resolve_offsets(offsets, I, J, nc: int, width: int) -> torch.Tensor:
     return offsets[:, :nc].contiguous()
 
 
-def _fill(reads, rlens, tpls, trans, tlens, width: int, pr_miscall: float,
-          offsets, backward: bool) -> BandedMatrix:
-    Jmax = tpls.shape[1]
-    nc = Jmax + 1
-    I = rlens.to(torch.int32)
-    J = tlens.to(torch.int32)
-    offsets = _resolve_offsets(offsets, I, J, nc, width)
-    coeffs = _backward_coeffs if backward else _forward_coeffs
-    cm, cd, cc, mask, seed, seedcol = coeffs(
-        reads.to(torch.int32), I, tpls.to(torch.int32), trans.float(), J,
-        offsets, width, pr_miscall)
-    vals, ls = fill_scan(cm.contiguous(), cd.contiguous(), cc.contiguous(),
-                         mask.contiguous(), seed.contiguous(),
-                         seedcol.contiguous(), backward)
-    return BandedMatrix(vals, offsets, ls)
+def _fills(reads, rlens, tpls, trans, tlens, width: int, pr_miscall: float,
+           offsets, alpha: bool, beta: bool):
+    """arrow_fill on the operand types K1 takes, as BandedMatrix leaves."""
+    offsets = _resolve_offsets(offsets, rlens.to(torch.int32),
+                               tlens.to(torch.int32), tpls.shape[1] + 1,
+                               width)
+    out = arrow_fill(reads.to(torch.int8).contiguous(),
+                     rlens.to(torch.int32).contiguous(),
+                     tpls.to(torch.int8).contiguous(),
+                     trans.float().contiguous(),
+                     tlens.to(torch.int32).contiguous(), offsets, width,
+                     pr_miscall, alpha, beta)
+    return tuple(BandedMatrix(o[0], offsets, o[1]) if o else None
+                 for o in out)
 
 
 def forward_batch(reads, rlens, tpls, trans, tlens, width: int,
@@ -363,8 +397,8 @@ def forward_batch(reads, rlens, tpls, trans, tlens, width: int,
     (R, Jmax+1, W) / (R, Jmax+1).  `offsets` (R, >= Jmax+1): precomputed
     monotone band offsets (guided rebanding); default diagonal layout.
     Counterpart of fwdbwd_pallas.pallas_forward_batch."""
-    return _fill(reads, rlens, tpls, trans, tlens, width, pr_miscall,
-                 offsets, backward=False)
+    return _fills(reads, rlens, tpls, trans, tlens, width, pr_miscall,
+                  offsets, alpha=True, beta=False)[0]
 
 
 def backward_batch(reads, rlens, tpls, trans, tlens, width: int,
@@ -372,8 +406,17 @@ def backward_batch(reads, rlens, tpls, trans, tlens, width: int,
                    offsets=None) -> BandedMatrix:
     """Batched banded backward (beta) fills; conventions of forward_batch
     (counterpart of fwdbwd_pallas.pallas_backward_batch)."""
-    return _fill(reads, rlens, tpls, trans, tlens, width, pr_miscall,
-                 offsets, backward=True)
+    return _fills(reads, rlens, tpls, trans, tlens, width, pr_miscall,
+                  offsets, alpha=False, beta=True)[1]
+
+
+def forward_backward_batch(reads, rlens, tpls, trans, tlens, width: int,
+                           pr_miscall: float = MISMATCH_PROBABILITY,
+                           offsets=None) -> tuple[BandedMatrix, BandedMatrix]:
+    """The alpha and beta fills of forward_batch / backward_batch on the
+    same band offsets, in one K1 launch on the card."""
+    return _fills(reads, rlens, tpls, trans, tlens, width, pr_miscall,
+                  offsets, alpha=True, beta=True)
 
 
 def forward_loglik_batch(alpha: BandedMatrix, rlens, tlens) -> torch.Tensor:

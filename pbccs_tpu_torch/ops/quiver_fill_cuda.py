@@ -203,14 +203,6 @@ def quiver_fill_plain(tables, rlens, wins, wlens, row_read, row_win,
     return (v if vals else None), ls, final_cell(v, offsets, I, J, backward)
 
 
-def _check(name, x, dtype, ndim) -> None:
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.dim() != ndim or not x.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous {ndim}-d tensor, "
-                         f"got shape {tuple(x.shape)}")
-
-
 _ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int]
              + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
@@ -246,7 +238,7 @@ def quiver_fill(tables, rlens, wins, wlens, row_read, row_win, offsets,
     if dev.type != "cuda":
         raise ValueError(f"quiver_fill: unsupported device {dev}")
     for name, (x, dtype, ndim) in args.items():
-        _check(name, x, dtype, ndim)
+        cuda_lib.check_tensor("quiver_fill", name, x, dtype, ndim)
     R, nc = offsets.shape
     M, Jmax = wins.shape
     n, P, ncols = tables.shape

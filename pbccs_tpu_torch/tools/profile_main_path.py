@@ -13,10 +13,11 @@ Quiver polishes ZMW by ZMW (pipeline.polish_prepared), warming up on
 the draw's second ZMW and profiling its first.  Prints one JSON line:
 host-draft and polish wall seconds, device busy time (the union of CUDA
 kernel intervals) and the device's idle share of the polish wall time,
-the number of kernel launches, and CUDA time grouped by kernel
-(fill_scan, quiver_fill, dense_score, and PyTorch's own kernels by
-operator).  Needs
-a CUDA device; exits non-zero without one."""
+the number of kernel launches (and of each of the port's kernels), CUDA
+time grouped by kernel (arrow_fill, quiver_fill, dense_score, and
+PyTorch's own kernels by operator), and the CUDA time of the port's
+kernels and of everything else (the torch glue and copies).  Needs a CUDA device; exits non-zero
+without one."""
 
 from __future__ import annotations
 
@@ -51,12 +52,15 @@ def _union_ms(intervals) -> float:
     return total / 1e3
 
 
+#: name prefixes of the port's hand-written kernels (csrc/*.cu)
+OUR_KERNELS = ("arrow_fill_kernel", "quiver_fill_kernel", "dense_score_kernel")
+
+
 def kernel_group(name: str) -> str:
     """A short group name for a CUDA kernel: our kernels by name,
     PyTorch's by the functor or operator its template names."""
     name = name.replace("(anonymous namespace)::", "")
-    if name.startswith(("fill_scan_kernel", "quiver_fill_kernel",
-                        "dense_score_kernel")):
+    if name.startswith(OUR_KERNELS):
         return name.split("(")[0]
     for pat in (r"where_kernel", r"\w*Functor\w*<\w+>", r"\w+_kernel\w*"):
         m = re.search(pat, name)
@@ -106,13 +110,17 @@ def main() -> int:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     by_name: dict[str, float] = {}
+    counts: dict[str, int] = {}
     for e in kernels:
         dur = (e.time_range.end - e.time_range.start) / 1e3
         g = kernel_group(e.name)
         by_name[g] = by_name.get(g, 0.0) + dur
+        if g.startswith(OUR_KERNELS):
+            counts[g] = counts.get(g, 0) + 1
     busy_ms = _union_ms((e.time_range.start, e.time_range.end)
                         for e in kernels)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])
+    ours = sum(v for k, v in by_name.items() if k.startswith(OUR_KERNELS))
     print(json.dumps({
         "card": chip_smoke.card_line(), "model": model, "zmws": len(chunks),
         "draft_s": t_draft, "polish_s": t_polish,
@@ -120,6 +128,9 @@ def main() -> int:
         "device_idle_share_of_polish": 1.0 - busy_ms / (t_polish * 1e3),
         "kernel_launches": len(kernels),
         "cuda_ms_total": sum(by_name.values()),
+        "cuda_ms_port_kernels": ours,
+        "cuda_ms_glue": sum(by_name.values()) - ours,
+        "port_kernel_launches": counts,
         "cuda_ms_by_kernel": dict(top[:20])}), flush=True)
     return 0
 

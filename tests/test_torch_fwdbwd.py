@@ -230,7 +230,7 @@ def test_fill_scan_plain_reproduces_a_hand_column():
     seed = torch.zeros(R, W)
     seed[:, 2] = 1.0
     seedcol = torch.zeros(R, dtype=torch.int32)
-    vals, ls = tfc.fill_scan(cm, cd, cc, mask, seed, seedcol, False)
+    vals, ls = tfc.fill_scan_plain(cm, cd, cc, mask, seed, seedcol, False)
     prev = vals[:, 0].double()
     np.testing.assert_array_equal(vals[:, 0].numpy(), seed.numpy())
     b = (cm[:, 1].double() * torch.roll(prev, 1, -1)

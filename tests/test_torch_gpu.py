@@ -9,7 +9,8 @@ conftest:
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest
 
 Tolerances: fills (K1 and the Quiver K2) bitwise equal to their plain
-versions (same association, -fmad=false -ftz=true); dense
+versions (same association, -fmad=false -ftz=true; K1's log-scales
+within 1e-6 relative, torch's log against the kernel's logf); dense
 interior scores rtol 2e-5 / atol 2e-3 (the reductions sum lanes in
 another order); the card's process_chunks agrees with the CPU's on the
 consensus and within 1 QV."""
@@ -77,24 +78,53 @@ def _on(c, dev):
             ("reads", "rlens", "win_tpl", "win_trans", "wlens")]
 
 
-@pytest.mark.parametrize("W", [64, 96, 128])
-@pytest.mark.parametrize("backward", [False, True])
-def test_fill_scan_kernel_matches_plain(cuda, W, backward):
+#: the band widths of the schedule (64, 96) and of its 2x retry (128, 192)
+K1_WIDTHS = [64, 96, 128, 192]
+
+
+def _k1_args(cuda, W):
+    """make_case's 6 reads (not a multiple of the 4 reads per block) on the
+    card with diagonal band offsets, as arrow_fill takes them."""
     c = make_case(21, L=300, n_reads=6)
     reads, rlens, tpls, trans, J = _on(c, cuda)
-    I, J = rlens.int(), J.int()
-    offs = band_offsets(I, J, tpls.shape[1] + 1, W)
-    coeffs = fc._backward_coeffs if backward else fc._forward_coeffs
-    args = [a.contiguous() for a in coeffs(
-        reads.int(), I, tpls.int(), trans, J, offs, W,
-        fc.MISMATCH_PROBABILITY)]
-    before = fc.fill_scan.launches
-    vk, lk = fc.fill_scan(*args, backward)
-    assert fc.fill_scan.launches == before + 1
-    vp, lp = fc.fill_scan_plain(*args, backward)
+    offs = band_offsets(rlens, J, tpls.shape[1] + 1, W)
+    return (reads, rlens, tpls, trans.contiguous(), J, offs, W,
+            fc.MISMATCH_PROBABILITY)
+
+
+def _assert_same_fill(got, want):
+    """Band values bitwise; log-scales within 1e-6 relative (torch's log
+    and the kernel's logf)."""
     torch.cuda.synchronize()
-    assert torch.equal(vk, vp)
-    np.testing.assert_allclose(lk.cpu().numpy(), lp.cpu().numpy(), rtol=1e-6)
+    assert torch.equal(got[0], want[0])
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=1e-6)
+
+
+@pytest.mark.parametrize("W", K1_WIDTHS)
+@pytest.mark.parametrize("backward", [False, True])
+def test_fill_scan_kernel_matches_plain(cuda, W, backward):
+    """K1 in one direction against its plain version (coefficient planes,
+    then fill_scan_plain) on the same card."""
+    args = _k1_args(cuda, W)
+    before = fc.arrow_fill.launches
+    got = fc.arrow_fill(*args, alpha=not backward, beta=backward)
+    assert fc.arrow_fill.launches == before + 1
+    assert got[not backward] is None
+    want = fc.arrow_fill_plain(*args, alpha=not backward, beta=backward)
+    _assert_same_fill(got[backward], want[backward])
+
+
+@pytest.mark.parametrize("W", K1_WIDTHS)
+def test_arrow_fill_fused_matches_plain(cuda, W):
+    """Alpha and beta in one launch, each against its plain version."""
+    args = _k1_args(cuda, W)
+    before = fc.arrow_fill.launches
+    got = fc.arrow_fill(*args)
+    assert fc.arrow_fill.launches == before + 1
+    want = fc.arrow_fill_plain(*args)
+    for g, w in zip(got, want):
+        _assert_same_fill(g, w)
 
 
 def _quiver_rows(seed: int, L: int, n_reads: int, dev):
@@ -233,15 +263,19 @@ def test_dense_score_kernel_matches_plain(cuda):
 
 
 def test_wrappers_check_inputs(cuda):
-    x = torch.zeros(2, 3, 64, device=cuda, dtype=torch.float64)
-    m = torch.zeros(2, 3, device=cuda)
-    s = torch.zeros(2, 64, device=cuda)
-    col = torch.zeros(2, dtype=torch.int32, device=cuda)
+    args = list(_k1_args(cuda, 64))
+    for W in (48, 224, 288):           # W % 32 != 0, not built, W > 256
+        with pytest.raises(ValueError):
+            fc.arrow_fill(*args[:6], W)
+    for i in (0, 3, 5):                               # one tensor on the CPU
+        bad = list(args)
+        bad[i] = args[i].cpu()
+        with pytest.raises(ValueError):
+            fc.arrow_fill(*bad)
+    bad = list(args)
+    bad[0] = args[0].int()
     with pytest.raises(TypeError):
-        fc.fill_scan(x, x, x, m, s, col, False)
-    with pytest.raises(ValueError):
-        fc.fill_scan(x.float(), x.float(), x.float(), m, s,
-                     col.long(), False)
+        fc.arrow_fill(*bad)
     from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
     args = list(_quiver_fill_args(cuda, "all", W=64))
@@ -271,9 +305,9 @@ def test_process_chunks_card_matches_cpu(cuda):
         _, reads, _, snr = simulate_zmw(rng, 300, 5)
         chunks.append(Chunk(f"g/{z}", [Subread(f"g/{z}/{i}", r)
                                        for i, r in enumerate(reads)], snr))
-    fills, dense = fc.fill_scan.launches, ds.dense_score.launches
+    fills, dense = fc.arrow_fill.launches, ds.dense_score.launches
     gpu = process_chunks(chunks)
-    assert fc.fill_scan.launches > fills and ds.dense_score.launches > dense
+    assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
     cpu = process_chunks(chunks, device="cpu")
     a = {r.id: r for r in gpu.results}
     b = {r.id: r for r in cpu.results}
@@ -281,3 +315,26 @@ def test_process_chunks_card_matches_cpu(cuda):
     for k in a:
         assert a[k].sequence == b[k].sequence
         assert np.abs(a[k].qvs.astype(int) - b[k].qvs.astype(int)).max() <= 1
+
+
+def test_process_chunks_builds_no_coefficient_plane(cuda, monkeypatch):
+    """On the card the Arrow path never runs the plain version's
+    coefficient precompute: with it patched to raise, process_chunks still
+    polishes every ZMW, on K1."""
+    from pbccs_tpu_torch.pipeline import Chunk, Subread, process_chunks
+
+    def no_planes(*args, **kwargs):
+        raise AssertionError("a coefficient plane was built on the card")
+
+    monkeypatch.setattr(fc, "_forward_coeffs", no_planes)
+    monkeypatch.setattr(fc, "_backward_coeffs", no_planes)
+    rng = np.random.default_rng(26)
+    chunks = []
+    for z in range(2):
+        _, reads, _, snr = simulate_zmw(rng, 300, 5)
+        chunks.append(Chunk(f"p/{z}", [Subread(f"p/{z}/{i}", r)
+                                       for i, r in enumerate(reads)], snr))
+    before = fc.arrow_fill.launches
+    out = process_chunks(chunks)
+    assert fc.arrow_fill.launches > before
+    assert out.total == 2 and out.results

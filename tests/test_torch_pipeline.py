@@ -176,13 +176,14 @@ def test_wrappers_reject_unsupported_devices():
     import torch
 
     from pbccs_tpu_torch.ops.dense_score_cuda import dense_score
-    from pbccs_tpu_torch.ops.fwdbwd_cuda import fill_scan
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import arrow_fill
     from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
     x = torch.zeros(1, 2, 4, device="meta")
-    with pytest.raises(ValueError):
-        fill_scan(x, x, x, x[:, :, 0], x[:, 0], x[:, 0, 0].int(), False)
     i = x[:, 0, 0].int()
+    b = x[0].to(torch.int8)
+    with pytest.raises(ValueError):
+        arrow_fill(b, i, b, x, i, x[:, :, 0].int(), 32, 0.01)
     with pytest.raises(ValueError):
         quiver_fill(x, i, x[0].to(torch.int8), i, i, i, x[:, :, 0].int(),
                     32, True, False)
