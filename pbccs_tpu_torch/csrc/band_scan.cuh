@@ -1,12 +1,12 @@
-// The circular-lane pieces shared by the fill kernels (csrc/arrow_fill.cu,
-// csrc/quiver_fill.cu): one warp holds one band column of W = 32 * NS
-// lanes in a strided layout, lane L = slot * 32 + thread, NS slots per
-// thread.  Every roll is by a compile-time distance, so it is one
-// __shfl_sync per held slot and a select (or, for a multiple of 32, a pure
-// slot rotation), and register arrays are only ever indexed by constants.
-// The arithmetic is the plain versions' (ops/fwdbwd_cuda._scan_plain):
-// built with -fmad=false -ftz=true, each product and sum rounds and flushes
-// as there.
+// The circular-lane pieces shared by the kernels (csrc/arrow_fill.cu,
+// csrc/quiver_fill.cu, csrc/dense_score.cu): one warp holds one band
+// column of W = 32 * NS lanes in a strided layout, lane L = slot * 32 +
+// thread, NS slots per thread.  Every roll is by a compile-time distance,
+// so it is one __shfl_sync per held slot and a select (or, for a multiple
+// of 32, a pure slot rotation), and register arrays are only ever indexed
+// by constants.  The arithmetic is the plain versions'
+// (ops/fwdbwd_cuda._scan_plain, ops/fwdbwd._affine_scan_circ): built with
+// -fmad=false -ftz=true, each product and sum rounds and flushes as there.
 
 #pragma once
 
@@ -54,6 +54,39 @@ __device__ __forceinline__ void scan(float (&b)[NS], float (&c)[NS],
       c[s] = c[s] * cs[s];
     }
     scan<NS, BWD, 2 * STEP>(b, c, tid);
+  }
+}
+
+// K independent forward scans of the same form side by side (K3's
+// extension columns), step by step: the K chains of a step are
+// independent, so their shuffles can be in flight together, and each
+// chain's rolled copies are dead once it has stepped.  Each chain's b is
+// bitwise scan<NS, false, 1>'s; the c products of the last step, which no
+// caller reads, are not formed.
+template <int K, int NS, int STEP = 1>
+__device__ __forceinline__ void scan_group(float (&b)[K][NS],
+                                           float (&c)[K][NS], int tid) {
+  constexpr int W = 32 * NS;
+  if constexpr (STEP < W) {
+    constexpr bool kLast = 2 * STEP >= W;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float bs[NS];
+      roll<NS, STEP>(b[k], bs, tid);
+      if constexpr (!kLast) {
+        float cs[NS];
+        roll<NS, STEP>(c[k], cs, tid);
+#pragma unroll
+        for (int s = 0; s < NS; ++s) {
+          b[k][s] = b[k][s] + c[k][s] * bs[s];
+          c[k][s] = c[k][s] * cs[s];
+        }
+      } else {
+#pragma unroll
+        for (int s = 0; s < NS; ++s) b[k][s] = b[k][s] + c[k][s] * bs[s];
+      }
+    }
+    scan_group<K, NS, 2 * STEP>(b, c, tid);
   }
 }
 

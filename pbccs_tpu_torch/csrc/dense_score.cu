@@ -1,8 +1,13 @@
-// K3: dense interior mutation scores over the 9-slot grid.
+// K3: dense interior mutation scores over the 9-slot grid, every operand
+// built in the kernel from the raw inputs.
 //
 // Replaces the TPU Pallas kernel pbccs_tpu/ops/dense_score_pallas.py::
-// _dense_kernel + _dense_kernel_body, launched there by
-// dense_interior_scores_batch.
+// _dense_kernel (:238) + _dense_kernel_body (:286), launched there by
+// dense_interior_scores_batch (:617), together with the operand planes that
+// feed it (band_read_windows, dense_patch_grids).  The plain torch version
+// is ops/dense_score_cuda.dense_score_plain (those planes, then
+// _dense_rows_plain); the arithmetic below is its, operation for
+// operation, so the two agree bitwise.
 //
 // What it computes: for read r and window position p, the absolute
 // log-likelihood of the read against the window with each of the 9
@@ -14,332 +19,456 @@
 //     beta column p+2;
 //   * add the alpha scale prefix and the beta scale suffix.
 // Each extension column is an in-column first-order recurrence solved as a
-// circular Hillis-Steele scan, associated exactly as the plain version
-// (ops/dense_score_cuda._dense_rows_plain) does; the build uses -fmad=false.
+// circular Hillis-Steele scan (band_scan.cuh), each link a band sum.
 // Values are valid for interior slots only (window position >= 3, end <=
 // len - 2); other entries are finite garbage the caller masks.
 //
-// What bounds it on this card: latency and operation count, not bytes.
-// Per (read, position) it reads about 12 W-float rows (alpha, beta, read
-// windows) and writes 9 floats, but runs 14 band scans of ceil(log2 W)
-// steps plus 9 band reductions.
+// Inputs per read r: alpha and beta band values (R, nc, W) on the band
+// offsets (R, nc), their scale prefix / suffix (R, nc + 1), the read
+// (R, Imax) int8 with its length I, the window template (R, Jm) int8 with
+// its length and transition rows (R, Jm, 4) (match, branch, stick, dark),
+// the read's transition table (R, 8, 4) by dinucleotide context, and a
+// live flag per 64 positions.  The kernel builds, per position, what the
+// plain version reads from planes:
+//   * the read windows of columns p-1, p, p+1: lane L of column j holds
+//     band row row(L) = o_j - (o_j mod W) + L (+ W when L < o_j mod W);
+//     rnext = read[row], rbase = read[row - 1], 0 outside [0, Imax) and
+//     for a column outside [0, nc).  band_read_windows' rbase takes the
+//     band's first row from column j-1 and can hold another value there
+//     when o_{j-1} == o_j; every use of that lane is masked (the match
+//     operand by in_band(rows - 1, o_prev), the insertion operand by
+//     rows > o_col), so the scores do not depend on it;
+//   * the patch transition rows of position p: rows of the read's table,
+//     context next + 4 (cur != next) clamped to 7, over the window bases
+//     p-1, p, p+1 (clipped to the window) and gated by p against the
+//     window length, as dense_patch_grids selects them.
 //
-// What the design does about it: one block per (read, 64-position block),
-// one thread per circular lane.  Independent scans run together: the four
-// ext0 columns and the deletion's first column share one 5-wide scan, and
-// the eight second columns and the deletion's second column one 9-wide
-// scan, so a position costs 2 * ceil(log2 W) scan barriers instead of 14x.
-// The lane rolls of the saved alpha/beta columns read rolled addresses
-// straight from device memory; only the computed ext0 columns go through
-// shared memory.  The nine link sums are warp-shuffle reductions finished
-// across warps in shared memory.  Blocks whose `live` flag is 0 (no
-// candidate slot in rounds > 0 of the refinement loop) write zeros and
-// return at once.
+// What bounds it on this card: instruction issue.  Per (read, position) it
+// reads one new alpha and one new beta column (8 W bytes) and writes 36
+// bytes, but runs 14 band scans of ceil(log2 W) steps and 9 band sums
+// over W lanes: by operation type about 1 ms at 384 x 2112 x 96
+// (chip_smoke.k3_bound) against 0.2 ms of bytes.  As built it issues
+// several times that work: each shuffled scan step adds two shuffles and
+// two selects per slot to its three float32 operations, and the SASS
+// holds about as many shuffles and selects as float32 multiplies.  The
+// design:
+//  - one block of two warps per (read, 64-position live cell), one warp
+//    per 32 positions, in band_scan.cuh's strided layout: every roll is a
+//    compile-time shuffle or slot rotation, the scans and sums never leave
+//    registers, and no block barrier or shared memory serves them (each
+//    warp keeps its read's 8 table rows, stick already divided by 3, in
+//    128 bytes of shared memory).  A dead cell's block writes its zeros
+//    and frees its slot at once; 32 positions per warp, so that the live
+//    cells of a late refinement round still spread over twice as many
+//    warps;
+//  - a sliding window of columns in registers: moving from p to p+1 turns
+//    alpha column p-1 into p-2 and beta column p+2 into p+1, so each
+//    position loads one alpha and one beta column and the read codes of
+//    one column (coalesced), issued after the position's scans so that
+//    they hold no registers there; the read codes of the three columns
+//    in use are packed into one register per slot;
+//  - the 14 scans run as independent chains side by side (band_scan::
+//    scan_group), kFam of the five families at a time (the four bases --
+//    ext0, then sub and ins -- and the deletion's two columns): their
+//    first columns, then their second columns, so that a family's shared
+//    b term never outlives it.  kFam is per width the fastest that fits
+//    in registers without a spill (W = 256 spills at every kFam);
+//  - each link sum adds a thread's slots in a register, then five xor
+//    shuffles: the plain version's band_sum order.
+// The build uses -fmad=false -ftz=true, so products and sums round and
+// flush as in the plain version; stick / 3 is an IEEE divide, taken once
+// per table row and per window row.
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "band_scan.cuh"
+
 namespace {
 
-constexpr int kPB = 64;
+using band_scan::band_row;
+using band_scan::in_band;
+using band_scan::kFull;
+using band_scan::roll;
+using band_scan::scan_group;
+
+constexpr int kPW = 32;      // positions per warp
+constexpr int kPB = 64;      // positions per live flag and per block
+constexpr int kWarps = kPB / kPW;
 constexpr int kSlots = 9;
-constexpr int kMatch = 0, kBranch = 1, kStick = 2, kDark = 3;
 
-__device__ __forceinline__ int wrap_lane(int x, int W) {
-  x %= W;
-  return x < 0 ? x + W : x;
-}
+struct Args {
+  const float* alpha;
+  const float* beta;
+  const int* offs;
+  const float* apre;
+  const float* bsuf;
+  const signed char* reads;
+  const int* rlens;
+  const signed char* wtpl;
+  const int* wlens;
+  const float4* wtrans;      // (match, branch, stick, dark) per position
+  const float4* tables;      // 8 context rows per read
+  const int* live;
+  float* out;
+  int R, nc, Imax, Jm, NB;
+  float hit, miss;
+};
 
-// absolute row held by circular lane L of a column with band offset o
-__device__ __forceinline__ int circ_row(int o, int L, int W) {
-  const int q = o % W;
-  return o - q + L + (L < q ? W : 0);
-}
-
-__device__ __forceinline__ bool in_band(int row, int o, int W) {
-  return row >= o && row < o + W;
+// A transition row as the extension needs it: (match, branch, stick / 3,
+// dark), the IEEE quotient taken once per row
+__device__ __forceinline__ float4 third_stick(float4 t) {
+  t.z = t.z / 3.0f;
+  return t;
 }
 
 // ExtendAlpha b-coefficient from the cross-column operands (pm1, p0)
-__device__ __forceinline__ float ext_b(float pm1, float p0, int rows,
-                                       float em, float tr_m, float tr_d,
-                                       int I) {
-  float b = pm1 * em * (rows < I ? tr_m : 0.0f);
-  b = b + (rows != I ? p0 * tr_d : 0.0f);
-  return (rows >= 1 && rows <= I) ? b : 0.0f;
+__device__ __forceinline__ float ext_b(float pm1, float p0, int row, float em,
+                                       float4 tr, int I) {
+  float b = pm1 * em * (row < I ? tr.x : 0.0f);
+  b = b + (row != I ? p0 * tr.w : 0.0f);
+  return (row >= 1 && row <= I) ? b : 0.0f;
 }
 
-__device__ __forceinline__ bool cmask(int rows, int o_col, int I) {
-  return rows > 1 && rows < I && rows > o_col;
+__device__ __forceinline__ bool cmask(int row, int o_col, int I) {
+  return row > 1 && row < I && row > o_col;
 }
 
-// insertion coefficient of the in-column recurrence
-__device__ __forceinline__ float ext_c(bool m, float rb, float next_b,
-                                       float tr_b, float tr_s) {
-  return m ? (rb == next_b ? tr_b : tr_s / 3.0f) : 0.0f;
+// insertion coefficient of the in-column recurrence (tr.z holds stick / 3)
+__device__ __forceinline__ float ext_c(bool m, int rb, int next_b, float4 tr) {
+  return m ? (rb == next_b ? tr.y : tr.z) : 0.0f;
 }
 
-// K independent circular scans v[L] = b[L] + c[L] * v[L-1], one barrier
-// per step; sb/sc hold 2*K*W floats each (double-buffered).
-template <int K>
-__device__ __forceinline__ void scan_k(float (&b)[K], float (&c)[K],
-                                       float* sb, float* sc, int L, int W,
-                                       bool lane_ok) {
-  int buf = 0;
-  for (int d = 1; d < W; d <<= 1) {
-    if (lane_ok) {
+// dinucleotide context row of the transition table (params.context_index,
+// clamped as transition_lookup clamps it)
+__device__ __forceinline__ int context(int cur, int next) {
+  return min(next + (cur != next ? 4 : 0), 7);
+}
+
+// The warp total of one link: sum over lanes of
+// e * tr.match * mterm + e * tr.dark * bi (band_sum's order).
+template <int NS>
+__device__ __forceinline__ float link_sum(const float (&e)[NS], float4 tr,
+                                          const float (&mterm)[NS],
+                                          const float (&bi)[NS]) {
+  float v = 0.0f;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        sb[(buf * K + k) * W + L] = b[k];
-        sc[(buf * K + k) * W + L] = c[k];
-      }
-    }
-    __syncthreads();
-    if (lane_ok) {
-      const int s = wrap_lane(L - d, W);
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const float bs = sb[(buf * K + k) * W + s];
-        const float cs = sc[(buf * K + k) * W + s];
-        b[k] = b[k] + c[k] * bs;
-        c[k] = c[k] * cs;
-      }
-    }
-    buf ^= 1;
+  for (int s = 0; s < NS; ++s) {
+    const float t = e[s] * tr.x * mterm[s] + e[s] * tr.w * bi[s];
+    v = s == 0 ? t : v + t;
   }
-  __syncthreads();   // the buffers are reused by the next exchange
+#pragma unroll
+  for (int x = 16; x > 0; x >>= 1) v = v + __shfl_xor_sync(kFull, v, x);
+  return v;
 }
 
-__global__ void dense_score_kernel(
-    const float* __restrict__ alpha, const float* __restrict__ beta,
-    const float* __restrict__ rbase, const float* __restrict__ rnext,
-    const int* __restrict__ offs, const float* __restrict__ apre,
-    const float* __restrict__ bsuf, const int* __restrict__ wtpl,
-    const float* __restrict__ wtrans, const float* __restrict__ ptrans,
-    const int* __restrict__ rlens, const int* __restrict__ live,
-    float* __restrict__ out, int nc, int Jm, int NB, int W, float hit,
-    float miss) {
-  const int blk = blockIdx.x;
-  const int r = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int p_lo = blk * kPB;
-  const int p_hi = min(p_lo + kPB, Jm);
-  float* out_r = out + (size_t)r * Jm * kSlots;
+template <int V>
+struct Int {
+  static constexpr int value = V;
+};
 
-  if (live[(size_t)r * NB + blk] == 0) {
-    for (int i = tid; i < (p_hi - p_lo) * kSlots; i += blockDim.x)
-      out_r[(size_t)p_lo * kSlots + i] = 0.0f;
-    return;
+// f(Int<k0>, Int<n>) for consecutive groups [k0, k0 + n) of the chains
+// [K0, N), n = G but the last: groups of compile-time size, so a group's
+// register arrays hold exactly its chains.
+template <int N, int G, int K0 = 0, typename F>
+__device__ __forceinline__ void for_groups(F&& f) {
+  if constexpr (K0 < N) {
+    constexpr int n = N - K0 < G ? N - K0 : G;
+    f(Int<K0>{}, Int<n>{});
+    for_groups<N, G, K0 + n>(f);
   }
+}
 
-  extern __shared__ float smem[];
-  float* sb = smem;              // 2 * 9 * W
-  float* sc = sb + 18 * W;       // 2 * 9 * W
-  float* xr = sc + 18 * W;       // 5 * W: ext0 columns for the lane roll
-  float* red = xr + 5 * W;       // 32 * 9: per-warp link sums
+// The read codes of the columns p-1, p, p+1 are packed one byte per column
+// (rbase in the low, rnext in the high nibble), column p-1 in the lowest
+// byte, so a position slides the window with one shift.
+__device__ __forceinline__ int rb_of(int pk, int col) {
+  return (pk >> (8 * col)) & 15;
+}
+__device__ __forceinline__ int rn_of(int pk, int col) {
+  return (pk >> (8 * col + 4)) & 15;
+}
 
-  const bool lane_ok = tid < W;
-  const int L = lane_ok ? tid : W - 1;
-  const int Lm1 = wrap_lane(L - 1, W);
-  const int Lp1 = wrap_lane(L + 1, W);
-  const int I = rlens[r];
-  const int nwarps = (blockDim.x + 31) >> 5;
-  const size_t col0 = (size_t)r * nc;
+template <int NS, int kFam>
+__device__ __forceinline__ void score_warp(const Args& a, int r, int p_lo,
+                                           int p_hi, int tid,
+                                           const float4* tab) {
+  constexpr int W = 32 * NS;
+  const int nc = a.nc, Jm = a.Jm, Imax = a.Imax;
+  const int I = a.rlens[r], Lw = a.wlens[r];
+  const float hit = a.hit, miss = a.miss;
+  const float* al = a.alpha + (size_t)r * nc * W + tid;
+  const float* be = a.beta + (size_t)r * nc * W + tid;
+  const int* orow = a.offs + (size_t)r * nc;
+  const float* apre = a.apre + (size_t)r * (nc + 1);
+  const float* bsuf = a.bsuf + (size_t)r * (nc + 1);
+  const signed char* rd = a.reads + (size_t)r * Imax;
+  const signed char* tp = a.wtpl + (size_t)r * Jm;
+  const float4* wtr = a.wtrans + (size_t)r * Jm;
+  float* out = a.out + (size_t)r * Jm * kSlots;
+  const float4 zero4 = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 
-  // position-indexed operands read as zero outside their arrays
-  auto A = [&](int j, int lane) -> float {
-    return (j >= 0 && j < nc) ? alpha[(col0 + j) * W + lane] : 0.0f;
+  // position-indexed operands read as zero outside their arrays (the plain
+  // version's _at); the patch contexts clip to the window instead
+  auto OFF = [&](int j) { return (j >= 0 && j < nc) ? orow[j] : 0; };
+  auto WT = [&](int j) { return (j >= 0 && j < Jm) ? (int)tp[j] : 0; };
+  auto TB = [&](int j) { return (int)tp[min(max(j, 0), Jm - 1)]; };
+  auto TR = [&](int j) { return (j >= 0 && j < Jm) ? wtr[j] : zero4; };
+  auto PRE = [&](int j) { return (j >= 0 && j <= nc) ? apre[j] : 0.0f; };
+  auto SUF = [&](int j) { return (j >= 0 && j <= nc) ? bsuf[j] : 0.0f; };
+  auto COL = [&](const float* base, int j, float (&v)[NS]) {
+    const bool ok = j >= 0 && j < nc;
+#pragma unroll
+    for (int s = 0; s < NS; ++s)
+      v[s] = ok ? base[(size_t)j * W + s * 32] : 0.0f;
   };
-  auto B = [&](int j, int lane) -> float {
-    return (j >= 0 && j < nc) ? beta[(col0 + j) * W + lane] : 0.0f;
+  // column j's read codes as one byte per slot: rbase = read[row - 1],
+  // rnext = read[row]
+  auto CODES = [&](int j, int (&byte)[NS]) {
+    const bool ok = j >= 0 && j < nc;
+    const int o = ok ? orow[j] : 0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const int row = band_row<W>(o, s, tid);
+      const int rn = (ok && row < Imax) ? (int)rd[row] : 0;
+      const int rb = (ok && row >= 1 && row <= Imax) ? (int)rd[row - 1] : 0;
+      byte[s] = rb | rn << 4;
+    }
   };
-  auto RB = [&](int j) -> float {
-    return (j >= 0 && j < nc) ? rbase[(col0 + j) * W + L] : 0.0f;
-  };
-  auto RN = [&](int j) -> float {
-    return (j >= 0 && j < nc) ? rnext[(col0 + j) * W + L] : 0.0f;
-  };
-  auto OFF = [&](int j) -> int {
-    return (j >= 0 && j < nc) ? offs[col0 + j] : 0;
-  };
-  auto APRE = [&](int j) -> float {
-    return (j >= 0 && j <= nc) ? apre[(size_t)r * (nc + 1) + j] : 0.0f;
-  };
-  auto BSUF = [&](int j) -> float {
-    return (j >= 0 && j <= nc) ? bsuf[(size_t)r * (nc + 1) + j] : 0.0f;
-  };
-  auto WT = [&](int j) -> float {
-    return (j >= 0 && j < Jm) ? (float)wtpl[(size_t)r * Jm + j] : 0.0f;
-  };
-  auto TR = [&](int j, int k) -> float {
-    return (j >= 0 && j < Jm) ? wtrans[((size_t)r * Jm + j) * 4 + k] : 0.0f;
-  };
+
+  // the sliding window: alpha columns p-2, p-1, beta columns p+1, p+2, the
+  // read codes of columns p-1, p, p+1
+  float am2[NS], am1[NS], bp1[NS], bp2[NS];
+  int pk[NS];
+  {
+    int c0[NS], c1[NS], c2[NS];
+    COL(al, p_lo - 2, am2);
+    COL(al, p_lo - 1, am1);
+    COL(be, p_lo + 1, bp1);
+    COL(be, p_lo + 2, bp2);
+    CODES(p_lo - 1, c0);
+    CODES(p_lo, c1);
+    CODES(p_lo + 1, c2);
+#pragma unroll
+    for (int s = 0; s < NS; ++s) pk[s] = c0[s] | c1[s] << 8 | c2[s] << 16;
+  }
 
   for (int p = p_lo; p < p_hi; ++p) {
     const int o_m2 = OFF(p - 2), o_m1 = OFF(p - 1), o_0 = OFF(p);
     const int o_p1 = OFF(p + 1), o_p2 = OFF(p + 2);
-    const float w_m2 = WT(p - 2), w_m1 = WT(p - 1), w_0 = WT(p);
-    const float w_p1 = WT(p + 1);
-    const float* pt = ptrans + ((size_t)r * Jm + p) * (kSlots * 8);
-    // patch transition row (slot, column) -> 4 floats at pt[(s*2+c)*4]
-    auto PT = [&](int s, int c, int k) -> float {
-      return pt[(s * 2 + c) * 4 + k];
+    const int w_m2 = WT(p - 2), w_m1 = WT(p - 1), w_0 = WT(p);
+    const int w_p1 = WT(p + 1);
+    const float4 wt_m3 = TR(p - 3), wt_m2 = third_stick(TR(p - 2));
+    // patch transition rows (dense_patch_grids): sub/ins b at p-1, sub b
+    // and ins b at p, del at p-1; the table holds stick / 3
+    const int prev_b = TB(p - 1), cur_b = TB(p), next_b = TB(p + 1);
+    auto PT0 = [&](int b) { return p > 0 ? tab[context(prev_b, b)] : zero4; };
+    auto PT1S = [&](int b) {
+      return p + 1 < Lw ? tab[context(b, next_b)] : zero4;
+    };
+    auto PT1I = [&](int b) { return p < Lw ? tab[context(b, cur_b)] : zero4; };
+    const float4 pt_del =
+        (p > 0 && p < Lw - 1) ? tab[context(prev_b, next_b)] : zero4;
+    // band rows of columns p-1, p, p+1
+    auto ROWS = [&](int o, int s) { return band_row<W>(o, s, tid); };
+
+    // The link operands of family 0 (sub: beta column p+2 at column p+1's
+    // rows), 1 (ins: p+1 at p+1's rows) and 2 (del: p+2 at p's rows).
+    auto link_ops = [&](int fam, float (&mt)[NS], float (&bi)[NS]) {
+      float bcol[NS], br[NS];
+#pragma unroll
+      for (int s = 0; s < NS; ++s) bcol[s] = fam == 1 ? bp1[s] : bp2[s];
+      roll<NS, W - 1>(bcol, br, tid);
+      const int o_b = fam == 1 ? o_p1 : o_p2;
+      const int o_r = fam == 2 ? o_0 : o_p1;
+      const int w_l = fam == 1 ? w_0 : w_p1;
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
+        const int row = ROWS(o_r, s);
+        const int rn = rn_of(pk[s], fam == 2 ? 1 : 2);
+        const float bip1 = in_band(row + 1, o_b, W) ? br[s] : 0.0f;
+        bi[s] = in_band(row, o_b, W) ? bcol[s] : 0.0f;
+        const float em = rn == w_l ? hit : miss;
+        mt[s] = row < I ? em * bip1 : 0.0f;
+      }
     };
 
-    const int rows_m1 = circ_row(o_m1, L, W);
-    const int rows_0 = circ_row(o_0, L, W);
-    const int rows_p1 = circ_row(o_p1, L, W);
-    const float rb_m1 = RB(p - 1), rb_0 = RB(p), rb_p1 = RB(p + 1);
-    const float rn_0 = RN(p), rn_p1 = RN(p + 1);
-
-    // ---- first extension columns: ext0 of sub/ins b (shared b term) and
-    // the deletion's first column (from alpha column p-2)
-    float b1[5], c1[5];
-    {
-      const float pm1 = in_band(rows_0 - 1, o_m1, W) ? A(p - 1, Lm1) : 0.0f;
-      const float p0 = in_band(rows_0, o_m1, W) ? A(p - 1, L) : 0.0f;
-      const float em = rb_0 == w_m1 ? hit : miss;
-      const float b0 = ext_b(pm1, p0, rows_0, em, TR(p - 2, kMatch),
-                             TR(p - 2, kDark), I);
-      const bool mc0 = cmask(rows_0, o_0, I);
+    // ---- the nine slots by family: f < 4 is base f (its first column,
+    // ext0, shared by sub f and ins f; then their second columns), f = 4
+    // the deletion (its first column from alpha column p-2, then its
+    // second).  kFam families at a time: their first columns scan side by
+    // side, each gives its second columns' b term, and their second
+    // columns scan side by side and link against the saved beta columns.
+    float v[kSlots];   // by slot: sub b at b, ins b at 4 + b, del at 8
+    for_groups<5, kFam>([&](auto f0_, auto n_) {
+      constexpr int f0 = decltype(f0_)::value, n = decltype(n_)::value;
+      // second columns: two per base (sub at 2g, ins at 2g + 1), one for
+      // the deletion, which is the last family
+      constexpr int m = 2 * n - (f0 + n == 5 ? 1 : 0);
+      float b2[m][NS], c2[m][NS];
+      {
+        float b1[n][NS], c1[n][NS];
+        float am1r[NS], am2r[NS];
+        roll<NS, 1>(am1, am1r, tid);
+        roll<NS, 1>(am2, am2r, tid);
 #pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        b1[b] = b0;
-        c1[b] = ext_c(mc0, rb_0, (float)b, PT(b, 0, kBranch),
-                      PT(b, 0, kStick));
+        for (int g = 0; g < n; ++g) {
+          const int f = f0 + g;
+          const float4 t0 = f < 4 ? PT0(f) : zero4;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            if (f < 4) {
+              const int row = ROWS(o_0, s);
+              const int rb0 = rb_of(pk[s], 1);
+              const float pm1 = in_band(row - 1, o_m1, W) ? am1r[s] : 0.0f;
+              const float p0 = in_band(row, o_m1, W) ? am1[s] : 0.0f;
+              const float em = rb0 == w_m1 ? hit : miss;
+              b1[g][s] = ext_b(pm1, p0, row, em, wt_m2, I);
+              c1[g][s] = ext_c(cmask(row, o_0, I), rb0, f, t0);
+            } else {
+              const int row = ROWS(o_m1, s);
+              const int rbm1 = rb_of(pk[s], 0);
+              const float pm1 = in_band(row - 1, o_m2, W) ? am2r[s] : 0.0f;
+              const float p0 = in_band(row, o_m2, W) ? am2[s] : 0.0f;
+              const float em = rbm1 == w_m2 ? hit : miss;
+              b1[g][s] = ext_b(pm1, p0, row, em, wt_m3, I);
+              c1[g][s] = ext_c(cmask(row, o_m1, I), rbm1, w_m1, wt_m2);
+            }
+          }
+        }
+        scan_group<n, NS>(b1, c1, tid);
+#pragma unroll
+        for (int g = 0; g < n; ++g) {
+          const int f = f0 + g;
+          float er[NS];
+          roll<NS, 1>(b1[g], er, tid);
+          const float4 t0 = f < 4 ? PT0(f) : wt_m2;
+#pragma unroll
+          for (int s = 0; s < NS; ++s) {
+            // base: rows of column p+1 against ext0 on column p's band;
+            // del: rows of column p against its first column on p-1's
+            const int o_prev = f < 4 ? o_0 : o_m1;
+            const int o_row = f < 4 ? o_p1 : o_0;
+            const int row = ROWS(o_row, s);
+            const float pm1 = in_band(row - 1, o_prev, W) ? er[s] : 0.0f;
+            const float p0 = in_band(row, o_prev, W) ? b1[g][s] : 0.0f;
+            const int rb = rb_of(pk[s], f < 4 ? 2 : 1);
+            const float em = rb == (f < 4 ? f : w_m1) ? hit : miss;
+            const float bv = ext_b(pm1, p0, row, em, t0, I);
+            const bool mc = cmask(row, o_row, I);
+            if (f < 4) {
+              b2[2 * g][s] = bv;
+              c2[2 * g][s] = ext_c(mc, rb, w_p1, PT1S(f));
+              b2[2 * g + 1][s] = bv;
+              c2[2 * g + 1][s] = ext_c(mc, rb, w_0, PT1I(f));
+            } else {
+              b2[2 * g][s] = bv;
+              c2[2 * g][s] = ext_c(mc, rb, w_p1, pt_del);
+            }
+          }
+        }
       }
-      const float dm1 = in_band(rows_m1 - 1, o_m2, W) ? A(p - 2, Lm1) : 0.0f;
-      const float d0 = in_band(rows_m1, o_m2, W) ? A(p - 2, L) : 0.0f;
-      const float dem = rb_m1 == w_m2 ? hit : miss;
-      b1[4] = ext_b(dm1, d0, rows_m1, dem, TR(p - 3, kMatch),
-                    TR(p - 3, kDark), I);
-      c1[4] = ext_c(cmask(rows_m1, o_m1, I), rb_m1, w_m1, TR(p - 2, kBranch),
-                    TR(p - 2, kStick));
-    }
-    scan_k<5>(b1, c1, sb, sc, tid, W, lane_ok);
-
-    // lane roll of the computed first columns
-    if (lane_ok) {
+      scan_group<m, NS>(b2, c2, tid);
 #pragma unroll
-      for (int k = 0; k < 5; ++k) xr[k * W + L] = b1[k];
-    }
-    __syncthreads();
-    float e_r[5];
-#pragma unroll
-    for (int k = 0; k < 5; ++k) e_r[k] = xr[k * W + Lm1];
-
-    // ---- second extension columns: sub b, ins b, del
-    float b2[9], c2[9];
-    {
-      const bool mc1 = cmask(rows_p1, o_p1, I);
-      const bool ib_m = in_band(rows_p1 - 1, o_0, W);
-      const bool ib_0 = in_band(rows_p1, o_0, W);
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float pm1 = ib_m ? e_r[b] : 0.0f;
-        const float p0 = ib_0 ? b1[b] : 0.0f;
-        const float em = rb_p1 == (float)b ? hit : miss;
-        const float bb = ext_b(pm1, p0, rows_p1, em, PT(b, 0, kMatch),
-                               PT(b, 0, kDark), I);
-        b2[b] = bb;
-        c2[b] = ext_c(mc1, rb_p1, w_p1, PT(b, 1, kBranch), PT(b, 1, kStick));
-        b2[4 + b] = bb;
-        c2[4 + b] = ext_c(mc1, rb_p1, w_0, PT(4 + b, 1, kBranch),
-                          PT(4 + b, 1, kStick));
+      for (int j = 0; j < m; ++j) {
+        const int f = f0 + j / 2;
+        const int fam = f == 4 ? 2 : j & 1;
+        const float4 tr = f == 4 ? pt_del : (j & 1) ? PT1I(f) : PT1S(f);
+        float mt[NS], bi[NS];
+        link_ops(fam, mt, bi);
+        v[f == 4 ? 8 : 4 * (j & 1) + f] = link_sum<NS>(b2[j], tr, mt, bi);
       }
-      const float pm1 = in_band(rows_0 - 1, o_m1, W) ? e_r[4] : 0.0f;
-      const float p0 = in_band(rows_0, o_m1, W) ? b1[4] : 0.0f;
-      const float em = rb_0 == w_m1 ? hit : miss;
-      b2[8] = ext_b(pm1, p0, rows_0, em, TR(p - 2, kMatch),
-                    TR(p - 2, kDark), I);
-      c2[8] = ext_c(cmask(rows_0, o_0, I), rb_0, w_p1, PT(8, 0, kBranch),
-                    PT(8, 0, kStick));
-    }
-    scan_k<9>(b2, c2, sb, sc, tid, W, lane_ok);
+    });
 
-    // ---- links against the saved beta columns
-    float term[9];
-    {
-      const bool lt_p1 = rows_p1 < I;
-      // sub family: beta column p+2
-      const float bip1_s =
-          in_band(rows_p1 + 1, o_p2, W) ? B(p + 2, Lp1) : 0.0f;
-      const float bi_s = in_band(rows_p1, o_p2, W) ? B(p + 2, L) : 0.0f;
-      const float em_s = rn_p1 == w_p1 ? hit : miss;
-      const float mterm_s = lt_p1 ? em_s * bip1_s : 0.0f;
-      // ins family: beta column p+1
-      const float bip1_i =
-          in_band(rows_p1 + 1, o_p1, W) ? B(p + 1, Lp1) : 0.0f;
-      const float bi_i = in_band(rows_p1, o_p1, W) ? B(p + 1, L) : 0.0f;
-      const float em_i = rn_p1 == w_0 ? hit : miss;
-      const float mterm_i = lt_p1 ? em_i * bip1_i : 0.0f;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const float ms = b2[b] * PT(b, 1, kMatch) * mterm_s;
-        const float ds = b2[b] * PT(b, 1, kDark) * bi_s;
-        term[b] = ms + ds;
-        const float mi = b2[4 + b] * PT(4 + b, 1, kMatch) * mterm_i;
-        const float di = b2[4 + b] * PT(4 + b, 1, kDark) * bi_i;
-        term[4 + b] = mi + di;
-      }
-      // del: rows of column p, beta column p+2
-      const float em_l = rn_0 == w_p1 ? hit : miss;
-      const float bip1 = in_band(rows_0 + 1, o_p2, W) ? B(p + 2, Lp1) : 0.0f;
-      const float bi = in_band(rows_0, o_p2, W) ? B(p + 2, L) : 0.0f;
-      const float mterm = rows_0 < I ? em_l * bip1 : 0.0f;
-      const float md = b2[8] * PT(8, 0, kMatch) * mterm;
-      const float dd = b2[8] * PT(8, 0, kDark) * bi;
-      term[8] = md + dd;
-    }
+    // ---- the next position's new columns, issued after the scans so that
+    // they hold no registers there
+    float na[NS], nb[NS];
+    int nbyte[NS];
+    COL(al, p, na);
+    COL(be, p + 3, nb);
+    CODES(p + 2, nbyte);
 
-    // nine band sums: warp shuffles, then across warps
+    // ---- lane k < 9 writes slot k: log of the band sum plus the scale
+    // prefix (sub/ins: column p, del: p-1) and suffix (sub/del: p+2,
+    // ins: p+1)
+    float mine = v[0];
 #pragma unroll
-    for (int k = 0; k < kSlots; ++k) {
-      float v = lane_ok ? term[k] : 0.0f;
-      for (int o = 16; o > 0; o >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, o);
-      if ((tid & 31) == 0) red[(tid >> 5) * kSlots + k] = v;
-    }
-    __syncthreads();
+    for (int k = 1; k < kSlots; ++k) mine = tid == k ? v[k] : mine;
     if (tid < kSlots) {
-      float v = red[tid];
-      for (int w = 1; w < nwarps; ++w) v += red[w * kSlots + tid];
-      float pre, suf;
-      if (tid < 4) {
-        pre = APRE(p);
-        suf = BSUF(p + 2);
-      } else if (tid < 8) {
-        pre = APRE(p);
-        suf = BSUF(p + 1);
-      } else {
-        pre = APRE(p - 1);
-        suf = BSUF(p + 2);
-      }
-      out_r[(size_t)p * kSlots + tid] = logf(fmaxf(v, 1e-30f)) + pre + suf;
+      const float pre = PRE(tid < 8 ? p : p - 1);
+      const float suf = SUF(tid >= 4 && tid < 8 ? p + 1 : p + 2);
+      out[(size_t)p * kSlots + tid] = logf(fmaxf(mine, 1e-30f)) + pre + suf;
+    }
+
+    // ---- slide the window one position on
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      am2[s] = am1[s];
+      am1[s] = na[s];
+      bp1[s] = bp2[s];
+      bp2[s] = nb[s];
+      pk[s] = (pk[s] >> 8) | nbyte[s] << 16;
     }
   }
 }
 
+// One block per (read, 64-position live cell), one warp per 32 positions:
+// a dead cell's block writes its zeros and frees its slot at once.
+template <int NS, int kFam>
+__global__ void __launch_bounds__(32 * kWarps)
+dense_score_kernel(const Args a) {
+  __shared__ float4 tabs[kWarps][8];
+  const int tid = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int r = blockIdx.x / a.NB;
+  const int cell = blockIdx.x - r * a.NB;
+  const int p_lo = cell * kPB + wid * kPW;
+  if (p_lo >= a.Jm) return;   // the whole warp: nothing waits on a barrier
+  const int p_hi = min(p_lo + kPW, a.Jm);
+  if (a.live[(size_t)r * a.NB + cell] == 0) {
+    float* out = a.out + ((size_t)r * a.Jm + p_lo) * kSlots;
+    for (int i = tid; i < (p_hi - p_lo) * kSlots; i += 32) out[i] = 0.0f;
+    return;
+  }
+  if (tid < 8) tabs[wid][tid] = third_stick(a.tables[(size_t)r * 8 + tid]);
+  __syncwarp();
+  score_warp<NS, kFam>(a, r, p_lo, p_hi, tid, tabs[wid]);
+}
+
+template <int NS, int kFam>
+int launch(const Args& a, cudaStream_t stream) {
+  const unsigned blocks = (unsigned)a.R * (unsigned)a.NB;
+  dense_score_kernel<NS, kFam><<<blocks, 32 * kWarps, 0, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// Built for K1's widths: W / 32 = 1..6 and 8 slots.  kFam, the families
+// scanned side by side, is per width the fastest that ptxas fits in
+// registers without a spill (chip runs of every choice, PERF.md); at 8
+// slots (W = 256, the 2x retry of an explicit band_width of 128) every
+// choice spills, and kFam 5 was the fastest of them.
 extern "C" int pbccs_dense_score(
-    const float* alpha, const float* beta, const float* rbase,
-    const float* rnext, const int* offs, const float* apre, const float* bsuf,
-    const int* wtpl, const float* wtrans, const float* ptrans,
-    const int* rlens, const int* live, float* out, int R, int nc, int Jm,
-    int NB, int W, float hit, float miss, void* stream) {
+    const float* alpha, const float* beta, const int* offs, const float* apre,
+    const float* bsuf, const signed char* reads, const int* rlens,
+    const signed char* wtpl, const int* wlens, const float* wtrans,
+    const float* tables, const int* live, float* out, int R, int nc,
+    int Imax, int Jm, int NB, int W, float hit, float miss, void* stream) {
   if (R <= 0 || Jm <= 0) return (int)cudaSuccess;
-  const int threads = ((W + 31) / 32) * 32;
-  const size_t smem = (size_t)(41 * W + 32 * kSlots) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        dense_score_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  const Args a{alpha, beta, offs, apre, bsuf, reads, rlens, wtpl, wlens,
+               reinterpret_cast<const float4*>(wtrans),
+               reinterpret_cast<const float4*>(tables), live, out, R, nc,
+               Imax, Jm, NB, hit, miss};
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (W) {
+    case 32: return launch<1, 5>(a, st);
+    case 64: return launch<2, 3>(a, st);
+    case 96: return launch<3, 3>(a, st);
+    case 128: return launch<4, 5>(a, st);
+    case 160: return launch<5, 2>(a, st);
+    case 192: return launch<6, 1>(a, st);
+    case 256: return launch<8, 5>(a, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  dim3 grid(NB, R);
-  dense_score_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      alpha, beta, rbase, rnext, offs, apre, bsuf, wtpl, wtrans, ptrans,
-      rlens, live, out, nc, Jm, NB, W, hit, miss);
-  return (int)cudaGetLastError();
 }

@@ -13,6 +13,14 @@ prefix/suffix and window template p-3..p+1, and the patch transitions
 at p.  Position-indexed operands read as zero outside their arrays, as
 the TPU kernel's zero-padded layout does.
 
+The kernel takes the raw inputs (fills, reads, window template and
+transitions, the per-read transition tables) and builds the read windows
+(`band_read_windows`) and patch transitions (`dense_patch_grids`) of each
+position itself; the plain version `dense_score_plain` builds them as
+planes.  Both plane functions take an optional column / position list,
+so the edge programs and the refill fallback build only the rows they
+read.
+
 Scope contract (unchanged from the JAX package): kernel values are valid
 only for INTERIOR slots (window position >= 3 and mutation end <=
 window_len - 2); other entries are finite garbage the caller masks.
@@ -20,8 +28,7 @@ Edge slots come from edge_window_scores_batch (plain torch, as the JAX
 package's edge programs are plain JAX).
 
 The TPU layout devices (DenseLayout, halo'd step views, cb blocking,
-packed aux planes) are not ported: the kernel reads the natural
-(R, nc, W) / (R, nc) tensors directly, with offsets as int32."""
+packed aux planes) are not ported."""
 
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import ctypes
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pbccs_tpu_torch.models.arrow.params import (
     MISMATCH_PROBABILITY,
@@ -41,13 +49,15 @@ from pbccs_tpu_torch.models.arrow.params import (
 from pbccs_tpu_torch.ops import cuda_lib
 from pbccs_tpu_torch.ops.fwdbwd import (BandedMatrix, _affine_scan_circ,
                                         circ_roll, circ_rows, ftz)
-from pbccs_tpu_torch.ops.fwdbwd_cuda import window_rows_circ
+from pbccs_tpu_torch.ops.fwdbwd_cuda import K1_WIDTHS, _third, window_rows_circ
 from pbccs_tpu_torch.ops.mutation_score import (_circ_rows_batch, _ext_col,
                                                 _in_band)
 
 _TINY = 1e-30
-PB = 64           # template positions per kernel block (liveness granule)
+PB = 64           # template positions per live flag (liveness granule)
 N_SLOTS = 9
+#: band widths K3 is built for (csrc/dense_score.cu): those K1 fills
+K3_WIDTHS = K1_WIDTHS
 _HIT = 1.0 - MISMATCH_PROBABILITY
 _MISS = MISMATCH_PROBABILITY / 3.0
 
@@ -57,29 +67,30 @@ _MISS = MISMATCH_PROBABILITY / 3.0
 # --------------------------------------------------------------------------
 
 
-def _shift_pos(x: torch.Tensor, t: int) -> torch.Tensor:
-    """y[:, j] = x[:, clip(j + t, 0, n-1)] along axis 1 (static t)."""
-    n = x.shape[1]
-    idx = (torch.arange(n, device=x.device) + t).clamp(0, n - 1)
-    return x[:, idx]
+def dense_patch_grids(win_tpl, win_trans, table, wl, pos=None) -> torch.Tensor:
+    """Virtual-mutation patch TRANSITION planes for the window-frame slot
+    grid of a read batch.
 
-
-def dense_patch_grids(win_tpl, win_trans, table, wl) -> torch.Tensor:
-    """Virtual-mutation patch TRANSITION planes for the full window-frame
-    slot grid of a read batch.
-
-    win_tpl (R, Jm) int; win_trans (R, Jm, 4); table (R, 8, 4); wl (R,).
-    Returns (R, Jm, 9, 2, 4) f32: for slot (p, k) the transition rows the
-    mutation patches in at virtual positions p-1 and p (make_patches_fast
-    values, via static shifts only).  Slot order: subs A,C,G,T; ins
-    A,C,G,T; del."""
+    win_tpl (R, Jm) int; win_trans (R, Jm, 4); table (R, 8, 4); wl (R,);
+    pos (R, K) window positions in [0, Jm), default every position.
+    Returns (R, K, 9, 2, 4) f32: for slot (pos, k) the transition rows
+    the mutation patches in at virtual positions pos-1 and pos
+    (make_patches_fast values; neighbours clipped to the window).  Slot
+    order: subs A,C,G,T; ins A,C,G,T; del.  Pure selection: the rows at
+    given positions are bitwise the full grid's."""
     R, Jm = win_tpl.shape
-    L = wl.to(torch.int32)[:, None]
-    pos = torch.arange(Jm, device=win_tpl.device)[None, :]
-    t32 = win_tpl.to(torch.int64)
-    prev_b = _shift_pos(t32, -1)
-    next_b = _shift_pos(t32, 1)
-    trans_p1 = _shift_pos(win_trans.float(), 1)
+    dev = win_tpl.device
+    if pos is None:
+        pos = torch.arange(Jm, device=dev)[None, :].expand(R, Jm)
+    pos = pos.long()
+    L = wl.to(torch.int64)[:, None]
+    t64 = win_tpl.to(torch.int64)
+    near = lambda k: (pos + k).clamp(0, Jm - 1)  # noqa: E731
+    cur_b = t64.gather(1, near(0))
+    prev_b = t64.gather(1, near(-1))
+    next_b = t64.gather(1, near(1))
+    trans_p1 = win_trans.float().gather(
+        1, near(1)[..., None].expand(-1, -1, 4))
 
     def T(a, b):
         return transition_lookup(a, b, table)
@@ -89,13 +100,13 @@ def dense_patch_grids(win_tpl, win_trans, table, wl) -> torch.Tensor:
 
     slots = []
     for b in range(4):                                       # SUB b
-        nb = torch.full_like(t32, b)
+        nb = torch.full_like(cur_b, b)
         slots.append(torch.stack([gate(pos > 0, T(prev_b, nb)),
                                   gate(pos + 1 < L, T(nb, next_b))], 2))
     for b in range(4):                                       # INS b
-        nb = torch.full_like(t32, b)
+        nb = torch.full_like(cur_b, b)
         slots.append(torch.stack([gate(pos > 0, T(prev_b, nb)),
-                                  gate(pos < L, T(nb, t32))], 2))
+                                  gate(pos < L, T(nb, cur_b))], 2))
     slots.append(torch.stack([                               # DEL
         gate((pos > 0) & (pos < L - 1), T(prev_b, next_b)),
         gate(pos < L - 1, trans_p1)], 2))
@@ -103,24 +114,34 @@ def dense_patch_grids(win_tpl, win_trans, table, wl) -> torch.Tensor:
 
 
 def band_read_windows(reads: torch.Tensor, offsets: torch.Tensor,
-                      width: int):
-    """(rbase, rnext), each (R, nc, W) f32: every column's circular-lane
-    read window.  rnext[r, j, L] is read[row] for the band row lane L of
-    column j holds (the insertion/link operand); rbase the read[row - 1]
-    value (the emission operand).
+                      width: int, cols=None):
+    """(rbase, rnext), each (R, K, W) f32: the circular-lane read windows
+    of band columns `cols` (R, K) (default every column, K = nc).
+    rnext[r, j, L] is read[row] for the band row lane L of column j holds
+    (the insertion/link operand), 0 past the read array; rbase the
+    read[row - 1] value (the emission operand).
 
     rbase derives from rnext: rbase[j] = circ_roll(rnext[j], 1) at every
     lane except the band's first row (the cut lane o_j % W), whose
     operand row o_j - 1 lives in column j-1's window at the same rolled
-    lane.  When o_j == o_{j-1} that cut lane holds garbage
-    (read[o_j + W - 1]); every consumer masks it: the cut lane's match
-    operand is gated by in_band(rows - 1, o_prev), its insertion operand
-    by rows > o_col, and rows outside [1, I] by in_read.  Any new
-    consumer of rbase must keep those gates."""
-    rnext = window_rows_circ(reads.float(), offsets, width)
-    prev_col = torch.cat([rnext[:, :1], rnext[:, :-1]], dim=1)
+    lane (column 0 uses its own).  When o_j == o_{j-1} that cut lane
+    holds garbage (read[o_j + W - 1]); every consumer masks it: the cut
+    lane's match operand is gated by in_band(rows - 1, o_prev), its
+    insertion operand by rows > o_col, and rows outside [1, I] by
+    in_read.  Any new consumer of rbase must keep those gates.  Given
+    columns are bitwise the full planes' columns, cut lane included."""
+    if cols is None:
+        o = offsets
+        o_prev = torch.cat([offsets[:, :1], offsets[:, :-1]], dim=1)
+    else:
+        cols = cols.long()
+        o = offsets.gather(1, cols)
+        o_prev = offsets.gather(1, (cols - 1).clamp(min=0))
+    x = reads.float()
+    rnext = window_rows_circ(x, o, width)
+    prev_col = window_rows_circ(x, o_prev, width)
     lane = torch.arange(width, device=reads.device)
-    cut = (offsets % width)[:, :, None] == lane
+    cut = (o % width)[:, :, None] == lane
     rbase = torch.where(cut, circ_roll(prev_col, 1), circ_roll(rnext, 1))
     return rbase, rnext
 
@@ -141,12 +162,33 @@ def _at(x: torch.Tensor, off: int, n_pos: int) -> torch.Tensor:
                                             device=x.device))
 
 
+_XOR_STEPS = (16, 8, 4, 2, 1)
+
+
+def band_sum(x: torch.Tensor) -> torch.Tensor:
+    """x.sum(-1) over the W band lanes in the kernel's order: lanes are
+    viewed as (W / 32 slots, 32 threads) -- csrc/band_scan.cuh's strided
+    layout, zero-padded to a multiple of 32 -- each thread adds its slots
+    in turn, then five xor-butterfly steps add across threads.  The terms
+    are non-negative and flushed, so no partial sum is subnormal."""
+    pad = -x.shape[-1] % 32
+    v = F.pad(x, (0, pad)).unflatten(-1, (-1, 32))
+    acc = v[..., 0, :]
+    for s in range(1, v.shape[-2]):
+        acc = acc + v[..., s, :]
+    lane = torch.arange(32, device=x.device)
+    for o in _XOR_STEPS:
+        acc = acc + acc[..., lane ^ o]
+    return acc[..., 0]
+
+
 def _dense_rows_plain(alpha, beta, rbase, rnext, offsets, apre, bsuf,
                       wtpl, wtrans, ptrans, rlens, hit, miss):
-    """All 9 slot scores of every position of a few reads: the kernel's
+    """All 9 slot scores of every position of a few reads from the
+    operand planes (band_read_windows, dense_patch_grids): the kernel's
     arithmetic vectorised over (R, Jm, W), every product and sum flushed
     to zero below F32_MIN_NORMAL as the kernel's -ftz=true arithmetic
-    does (fwdbwd.ftz)."""
+    does (fwdbwd.ftz), the band sums in its order (band_sum)."""
     W = alpha.shape[2]
     Jm = wtpl.shape[1]
     I = rlens.to(torch.int32)[:, None, None]
@@ -192,7 +234,7 @@ def _dense_rows_plain(alpha, beta, rbase, rnext, offsets, apre, bsuf,
 
     def ext_c(mask_c, rb, next_b, cur_tr):
         ins_em = torch.where(rb == next_b, tr(cur_tr, TRANS_BRANCH),
-                             tr(cur_tr, TRANS_STICK) / 3.0)
+                             _third(tr(cur_tr, TRANS_STICK)))
         return torch.where(mask_c, ins_em, 0.0)
 
     def ext_col(prev, o_prev, o_col, rows, rb, cur_b, next_b, prev_tr,
@@ -212,7 +254,7 @@ def _dense_rows_plain(alpha, beta, rbase, rnext, offsets, apre, bsuf,
     def link_shared(ext1, link_tr, mterm, beta_i, apre_s, bsuf_b):
         match = ftz(ftz(ext1 * tr(link_tr, TRANS_MATCH)) * mterm)
         dele = ftz(ftz(ext1 * tr(link_tr, TRANS_DARK)) * beta_i)
-        v = ftz(match + dele).sum(-1)
+        v = band_sum(ftz(match + dele))
         return torch.log(torch.clamp(v, min=_TINY)) + apre_s + bsuf_b
 
     outs = [None] * N_SLOTS
@@ -249,22 +291,28 @@ def _dense_rows_plain(alpha, beta, rbase, rnext, offsets, apre, bsuf,
     return torch.stack(outs, dim=2)
 
 
-def dense_score_plain(alpha, beta, rbase, rnext, offsets, apre, bsuf, wtpl,
-                      wtrans, ptrans, rlens, live, hit: float = _HIT,
-                      miss: float = _MISS) -> torch.Tensor:
-    """The kernel's function in plain torch: (R, Jm, 9) scores, zero in
-    dead (read, 64-position block) cells.  Reads are processed in chunks
-    so the (R, Jm, W) intermediates stay bounded."""
+def dense_score_plain(alpha, beta, offsets, apre, bsuf, reads, rlens,
+                      win_tpl, wlens, win_trans, tables, live,
+                      hit: float = _HIT, miss: float = _MISS) -> torch.Tensor:
+    """The kernel's function in plain torch, on dense_score's arguments:
+    (R, Jm, 9) scores, zero in dead (read, 64-position block) cells.
+    Reads are processed in chunks, each building its read windows
+    (band_read_windows) and patch grid (dense_patch_grids) as planes, so
+    the (R, Jm, W) intermediates stay bounded."""
     R, nc, W = alpha.shape
-    Jm = wtpl.shape[1]
+    Jm = win_tpl.shape[1]
     out = torch.zeros(R, Jm, N_SLOTS, dtype=torch.float32,
                       device=alpha.device)
     step = max(1, (1 << 22) // max(Jm * W, 1))
     for lo in range(0, R, step):
         sl = slice(lo, lo + step)
+        rbase, rnext = band_read_windows(reads[sl], offsets[sl], W)
+        ptrans = dense_patch_grids(win_tpl[sl], win_trans[sl], tables[sl],
+                                   wlens[sl])
         out[sl] = _dense_rows_plain(
-            alpha[sl], beta[sl], rbase[sl], rnext[sl], offsets[sl], apre[sl],
-            bsuf[sl], wtpl[sl], wtrans[sl], ptrans[sl], rlens[sl], hit, miss)
+            alpha[sl], beta[sl], rbase, rnext, offsets[sl], apre[sl],
+            bsuf[sl], win_tpl[sl], win_trans[sl], ptrans, rlens[sl], hit,
+            miss)
     live_pos = live[:, torch.arange(Jm, device=out.device) // PB] != 0
     return torch.where(live_pos[:, :, None], out, 0.0)
 
@@ -280,57 +328,65 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _bind_dense(lib: ctypes.CDLL):
-    fn = lib.pbccs_dense_score
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 \
-            + [ctypes.c_float] * 2 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
+             + [ctypes.c_float] * 2 + [ctypes.c_void_p])
 
 
-def dense_score(alpha, beta, rbase, rnext, offsets, apre, bsuf, wtpl, wtrans,
-                ptrans, rlens, live) -> torch.Tensor:
+def dense_score(alpha, beta, offsets, apre, bsuf, reads, rlens, win_tpl,
+                wlens, win_trans, tables, live) -> torch.Tensor:
     """The K3 interior scorer: (R, Jm, 9) slot log-likelihoods.
 
-    alpha, beta, rbase, rnext (R, nc, W) f32; offsets (R, nc) int32; apre,
-    bsuf (R, nc+1) f32; wtpl (R, Jm) int32; wtrans (R, Jm, 4) f32; ptrans
-    (R, Jm, 9, 2, 4) f32; rlens (R,) int32; live (R, ceil(Jm/64)) int32,
-    0 = dead block (written as zeros).  CPU tensors run
-    dense_score_plain; CUDA tensors launch csrc/dense_score.cu on the
-    current stream (no fallback)."""
-    if alpha.device.type == "cpu":
-        return dense_score_plain(alpha, beta, rbase, rnext, offsets, apre,
-                                 bsuf, wtpl, wtrans, ptrans, rlens, live)
-    if alpha.device.type != "cuda":
-        raise ValueError(f"dense_score: unsupported device {alpha.device}")
-    R, nc, W = alpha.shape
-    Jm = wtpl.shape[1]
-    NB = -(-Jm // PB)
+    alpha, beta (R, nc, W) f32 band values on the band offsets (R, nc)
+    int32, with their scale prefix / suffix apre, bsuf (R, nc+1) f32;
+    reads (R, Imax) int8 with rlens (R,) int32; the window template
+    win_tpl (R, Jm) int8 with wlens (R,) int32 and win_trans (R, Jm, 4)
+    f32; the per-read transition tables (R, 8, 4) f32; live
+    (R, ceil(Jm/64)) int32, 0 = dead block (written as zeros).  CPU
+    tensors run dense_score_plain; CUDA tensors launch
+    csrc/dense_score.cu on the current stream (no fallback; W must be in
+    K3_WIDTHS)."""
     dev = alpha.device
-    f32, i32 = torch.float32, torch.int32
-    for name, x in (("alpha", alpha), ("beta", beta), ("rbase", rbase),
-                    ("rnext", rnext)):
-        _check(name, x, (R, nc, W), f32, dev)
-    _check("offsets", offsets, (R, nc), i32, dev)
-    _check("apre", apre, (R, nc + 1), f32, dev)
-    _check("bsuf", bsuf, (R, nc + 1), f32, dev)
-    _check("wtpl", wtpl, (R, Jm), i32, dev)
-    _check("wtrans", wtrans, (R, Jm, 4), f32, dev)
-    _check("ptrans", ptrans, (R, Jm, N_SLOTS, 2, 4), f32, dev)
-    _check("rlens", rlens, (R,), i32, dev)
-    _check("live", live, (R, NB), i32, dev)
-    if not 2 <= W <= 1024:
-        raise ValueError(f"dense_score: band width {W} outside [2, 1024]")
+    R, nc, W = alpha.shape
+    Imax, Jm = reads.shape[1], win_tpl.shape[1]
+    NB = -(-Jm // PB)
+    f32, i32, i8 = torch.float32, torch.int32, torch.int8
+    args = (("alpha", alpha, (R, nc, W), f32), ("beta", beta, (R, nc, W), f32),
+            ("offsets", offsets, (R, nc), i32),
+            ("apre", apre, (R, nc + 1), f32), ("bsuf", bsuf, (R, nc + 1), f32),
+            ("reads", reads, (R, Imax), i8), ("rlens", rlens, (R,), i32),
+            ("win_tpl", win_tpl, (R, Jm), i8), ("wlens", wlens, (R,), i32),
+            ("win_trans", win_trans, (R, Jm, 4), f32),
+            ("tables", tables, (R, 8, 4), f32), ("live", live, (R, NB), i32))
+    for name, x, _, _ in args:
+        if x.device != dev:
+            raise ValueError(f"dense_score: {name} is on {x.device}, alpha "
+                             f"on {dev}")
+    if dev.type == "cpu":
+        return dense_score_plain(alpha, beta, offsets, apre, bsuf, reads,
+                                 rlens, win_tpl, wlens, win_trans, tables,
+                                 live)
+    if dev.type != "cuda":
+        raise ValueError(f"dense_score: unsupported device {dev}")
+    for name, x, shape, dtype in args:
+        _check(name, x, shape, dtype, dev)
+    if W not in K3_WIDTHS:
+        raise ValueError(f"dense_score: band width {W} is not one of "
+                         f"{K3_WIDTHS}")
+    if win_trans.data_ptr() % 16 or tables.data_ptr() % 16:
+        raise ValueError("dense_score: win_trans and tables must be 16-byte "
+                         "aligned")
     out = torch.empty(R, Jm, N_SLOTS, dtype=f32, device=dev)
-    fn = _bind_dense(cuda_lib.load("dense_score"))
+    fn = cuda_lib.load("dense_score").pbccs_dense_score
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(alpha.data_ptr(), beta.data_ptr(), rbase.data_ptr(),
-                 rnext.data_ptr(), offsets.data_ptr(), apre.data_ptr(),
-                 bsuf.data_ptr(), wtpl.data_ptr(), wtrans.data_ptr(),
-                 ptrans.data_ptr(), rlens.data_ptr(), live.data_ptr(),
-                 out.data_ptr(), R, nc, Jm, NB, W, _HIT, _MISS, stream)
+        err = fn(alpha.data_ptr(), beta.data_ptr(), offsets.data_ptr(),
+                 apre.data_ptr(), bsuf.data_ptr(), reads.data_ptr(),
+                 rlens.data_ptr(), win_tpl.data_ptr(), wlens.data_ptr(),
+                 win_trans.data_ptr(), tables.data_ptr(), live.data_ptr(),
+                 out.data_ptr(), R, nc, Imax, Jm, NB, W, _HIT, _MISS, stream)
     cuda_lib.check(err, "dense_score")
     dense_score.launches += 1
     return out
@@ -342,31 +398,25 @@ dense_score.launches = 0
 def dense_interior_scores_batch(reads, rlens, win_tpl, win_trans, wlens,
                                 tables, alpha: BandedMatrix,
                                 beta: BandedMatrix, apre, bsuf, width: int,
-                                ptrans=None, live=None, rwin=None
-                                ) -> torch.Tensor:
+                                live=None) -> torch.Tensor:
     """(R, Jm, 9) window-frame interior scores for a flat read batch.
 
     reads (R, Imax); rlens (R,); win_tpl (R, Jm); win_trans (R, Jm, 4);
     wlens (R,); tables (R, 8, 4); alpha/beta the banded fills of the
-    unmutated windows; apre/bsuf (R, nc+1).  `live` (R, NB) bool gates
-    64-position blocks (default all live); `ptrans` / `rwin` reuse
-    dense_patch_grids / band_read_windows when the caller has them."""
+    unmutated windows on alpha's band offsets; apre/bsuf (R, nc+1).
+    `live` (R, NB) bool gates 64-position blocks (default all live)."""
     R, Jm = win_tpl.shape
-    NB = -(-Jm // PB)
-    if rwin is None:
-        rwin = band_read_windows(reads, alpha.offsets, width)
-    if ptrans is None:
-        ptrans = dense_patch_grids(win_tpl, win_trans, tables, wlens)
     if live is None:
-        live = torch.ones(R, NB, dtype=torch.bool, device=reads.device)
+        live = torch.ones(R, -(-Jm // PB), dtype=torch.bool,
+                          device=reads.device)
     i32 = torch.int32
     return dense_score(
         alpha.vals.contiguous(), beta.vals.contiguous(),
-        rwin[0].contiguous(), rwin[1].contiguous(),
         alpha.offsets.to(i32).contiguous(), apre.float().contiguous(),
-        bsuf.float().contiguous(), win_tpl.to(i32).contiguous(),
-        win_trans.float().contiguous(), ptrans.float().contiguous(),
-        rlens.to(i32).contiguous(), live.to(i32).contiguous())
+        bsuf.float().contiguous(), reads.to(torch.int8).contiguous(),
+        rlens.to(i32).contiguous(), win_tpl.to(torch.int8).contiguous(),
+        wlens.to(i32).contiguous(), win_trans.float().contiguous(),
+        tables.float().contiguous(), live.to(i32).contiguous())
 
 
 # --------------------------------------------------------------------------
@@ -447,16 +497,37 @@ def _window(x: torch.Tensor, start: torch.Tensor, size: int) -> torch.Tensor:
     return torch.gather(x, 1, idx)
 
 
-def _edge_read_windows(rbase, rnext, J, W: int) -> torch.Tensor:
-    """(R, 11, W) circular-lane read windows for the edge programs, sliced
-    from the interior kernel's per-column windows: rows 0-3 = columns
-    1..4 (near-begin refill), row 4 = the read_pad0 window at column 4
-    (near-begin link), rows 5-10 = columns J-3..J+2 (near-end)."""
-    wins_nb = rbase[:, 1:5]
-    rn4 = rnext[:, 4:5]
-    rbase_pad = torch.cat([rbase, rbase[:, -1:], rbase[:, -1:]], dim=1)
-    wins_ne = _window(rbase_pad, J - 3, 6)
-    return torch.cat([wins_nb, rn4, wins_ne], dim=1)
+def _edge_columns(J, nc: int) -> torch.Tensor:
+    """(R, 10) band columns the edge programs read: 1..4 (near-begin
+    refill; column 4 also for its link) and J-3..J+2 (near-end), the
+    latter as a window of the columns padded with two copies of the last
+    one, its start clamped into range (lax.dynamic_slice semantics)."""
+    dev = J.device
+    start = (J.long() - 3).clamp(0, nc + 2 - 6)
+    ne = (start[:, None] + torch.arange(6, device=dev)).clamp(max=nc - 1)
+    nb = torch.arange(1, 5, device=dev).expand(J.shape[0], 4)
+    return torch.cat([nb, ne], dim=1)
+
+
+def _edge_read_windows(reads, offsets, J, W: int) -> torch.Tensor:
+    """(R, 11, W) circular-lane read windows for the edge programs, built
+    for the columns they read only: rows 0-3 = rbase of columns 1..4
+    (near-begin refill), row 4 = the rnext window of column 4 (near-begin
+    link), rows 5-10 = rbase of columns J-3..J+2 (near-end)."""
+    rbase, rnext = band_read_windows(reads, offsets, W,
+                                     _edge_columns(J, offsets.shape[1]))
+    return torch.cat([rbase[:, :4], rnext[:, 3:4], rbase[:, 4:]], dim=1)
+
+
+def _edge_positions(J, Jm: int) -> torch.Tensor:
+    """(R, 6) window positions whose patch rows the edge programs read:
+    0, 1, 2 and J-2..J (a window of 3 with its start clamped into
+    range)."""
+    dev = J.device
+    start = (J.long() - 2).clamp(0, Jm - 3)
+    ne = start[:, None] + torch.arange(3, device=dev)
+    return torch.cat([torch.arange(3, device=dev).expand(J.shape[0], 3), ne],
+                     dim=1)
 
 
 def _edge_nb_read(wins, I, tpl, trans, J, offs, bvals, boffs, bsuf, pt3,
@@ -507,13 +578,14 @@ def _edge_nb_read(wins, I, tpl, trans, J, offs, bvals, boffs, bsuf, pt3,
     return torch.log(torch.clamp(v, min=_TINY)) + bsuf_b
 
 
-def _edge_ne_read(wins, I, tpl, trans, J, avals, offs, apre, ptrans,
+def _edge_ne_read(wins, I, tpl, trans, J, avals, offs, apre, ptS,
                   *, W: int):
     """Near-end scores: (R, 27) absolute LLs for slots at window positions
     {J-2, J-1, J}: extend saved alpha columns s..s+2 through the pinned
     (I, J') corner; LL = log corner + alpha scale prefix
     (edge_scores_fast's near-end branch).  Geometry is static in the
-    J-relative frame.  Valid for J >= 8 (tiny windows bail)."""
+    J-relative frame; ptS (R, 3, 9, 2, 4) the patch rows of positions
+    J-2..J.  Valid for J >= 8 (tiny windows bail)."""
     R = wins.shape[0]
     M = 27
     dev = wins.device
@@ -528,7 +600,6 @@ def _edge_ne_read(wins, I, tpl, trans, J, avals, offs, apre, ptrans,
         (R, 4), 4.0, device=dev)], dim=1), J - 6, 10)
     transS = _window(torch.cat([trans, torch.zeros(R, 3, 4, device=dev)],
                                dim=1), J - 6, 9)
-    ptS = _window(ptrans, J - 2, 3)                        # (R, 3, 9, 2, 4)
     rb6 = wins[:, 5:11]                                    # cols J-3..J+2
 
     t = _T27
@@ -566,26 +637,26 @@ def _edge_ne_read(wins, I, tpl, trans, J, avals, offs, apre, ptrans,
 
 
 def edge_window_scores_batch(reads, rlens, win_tpl, win_trans, wlens,
-                             alpha: BandedMatrix, beta: BandedMatrix,
-                             apre, bsuf, ptrans, width: int, rwin=None
-                             ) -> torch.Tensor:
+                             tables, alpha: BandedMatrix, beta: BandedMatrix,
+                             apre, bsuf, width: int) -> torch.Tensor:
     """(R, 6, 9) window-frame edge-slot scores: rows 0..2 = window
     positions {0, 1, 2}, rows 3..5 = {J-2, J-1, J}.  Entries whose slot
     is interior (ins at J-2) or invalid are garbage the caller masks or
-    splices around.  `rwin`: precomputed band_read_windows."""
-    rbase, rnext = rwin if rwin is not None else \
-        band_read_windows(reads, alpha.offsets, width)
+    splices around.  Builds only the read-window columns and patch rows
+    it reads (_edge_columns, _edge_positions)."""
     I = rlens.to(torch.int32)
     J = wlens.to(torch.int32)
     tpl = win_tpl.to(torch.int32)
     trans = win_trans.float()
     aoffs = alpha.offsets.to(torch.int32)
-    wins = _edge_read_windows(rbase, rnext, J, width)
+    wins = _edge_read_windows(reads, aoffs, J, width)
+    pt6 = dense_patch_grids(win_tpl, win_trans, tables, wlens,
+                            _edge_positions(J, win_tpl.shape[1]))
     nb = _edge_nb_read(wins, I, tpl, trans, J, aoffs, beta.vals,
-                       beta.offsets.to(torch.int32), bsuf, ptrans[:, :3],
+                       beta.offsets.to(torch.int32), bsuf, pt6[:, :3],
                        W=width)
     ne = _edge_ne_read(wins, I, tpl, trans, J, alpha.vals, aoffs, apre,
-                       ptrans, W=width)
+                       pt6[:, 3:], W=width)
     R = reads.shape[0]
     return torch.cat([nb.reshape(R, 3, 9), ne.reshape(R, 3, 9)], dim=1)
 

@@ -22,6 +22,7 @@ from pbccs_tpu_torch.models.arrow.params import (
 )
 from pbccs_tpu_torch.ops.fwdbwd import (_affine_scan_circ, circ_roll,
                                         circ_rows, ftz)
+from pbccs_tpu_torch.ops.fwdbwd_cuda import _third
 
 
 def scale_prefix(log_scales: torch.Tensor) -> torch.Tensor:
@@ -87,7 +88,7 @@ def _ext_col(prev_vals, o_prev, o_col, rbase_row, jcol, cur_b, next_b,
 
     ins_em = torch.where(rbase_row == next_b[..., None],
                          cur_tr[..., TRANS_BRANCH:TRANS_BRANCH + 1],
-                         cur_tr[..., TRANS_STICK:TRANS_STICK + 1] / 3.0)
+                         _third(cur_tr[..., TRANS_STICK:TRANS_STICK + 1]))
     c = torch.where(in_read & (rows > 1) & (rows < I) & (jcol != max_left)
                     & (rows > o_col[..., None]), ins_em, 0.0)
     return _affine_scan_circ(b, c)

@@ -282,15 +282,17 @@ def slot_geometry(ts, te, strand, ms, me, is_ins):
     return overlap, interior, wlen
 
 
-def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, ptrans,
+def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, tables,
                   strands, tstarts, tends, end, width: int) -> torch.Tensor:
     """(E,) absolute LLs of (z, r, slot) pairs by a full banded refill
     (K1) of each read's mutated window: the JAX host loop's tiny-window
     fallback (batch._batch_edge -> scorer._score_edge).  The template-
     frame slot maps to its window-frame slot (reverse reads: position
-    te - end, base complemented), whose patch rows come from the window
-    frame's patch grid `ptrans` (Z*R, Jm, 9, 2, 4)."""
-    from pbccs_tpu_torch.ops.dense_score_cuda import _REV_PERM
+    te - end, base complemented), whose patch rows are built for that
+    position alone (dense_patch_grids with the pair's position; tables
+    (Z*R, 8, 4))."""
+    from pbccs_tpu_torch.ops.dense_score_cuda import (_REV_PERM,
+                                                      dense_patch_grids)
     from pbccs_tpu_torch.ops.fwdbwd_cuda import (forward_batch,
                                                  forward_loglik_batch)
     from pbccs_tpu_torch.ops.mutation_score import (make_window_patches,
@@ -308,13 +310,21 @@ def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, ptrans,
     wt_e, wtr_e, wl_e = f_wt[zr], f_wtr[zr], f_wl[zr]
     mt = torch.as_tensor(_SLOT_TYPES, device=dev)[k_w]
     nb = torch.as_tensor(_SLOT_BASES, device=dev)[k_w]
-    patch = make_window_patches(wt_e, ptrans[zr, p, k_w], p, mt, nb)
+    pt = dense_patch_grids(wt_e, wtr_e, tables[zr], wl_e, p[:, None])
+    patch = make_window_patches(wt_e, pt[torch.arange(len(p), device=dev),
+                                         0, k_w], p, mt, nb)
     bases, trans, new_len = mutated_windows_per_pair(wt_e, wtr_e, wl_e, p, mt,
                                                      patch)
     jcut = int(new_len.max()) + 1          # columns past every window
     alpha = forward_batch(flat_reads[zr], flat_rlens[zr], bases[:, :jcut],
                           trans[:, :jcut], new_len, width)
     return forward_loglik_batch(alpha, flat_rlens[zr], new_len)
+
+
+#: names of score_slot_grid's stages, as torch.profiler ranges
+#: (pbccs_tpu_torch/tools/profile_main_path.py reads their CUDA time)
+STAGES = ("slot_grid.geometry", "slot_grid.k3", "slot_grid.edge",
+          "slot_grid.splice_map", "slot_grid.refill")
 
 
 def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
@@ -324,78 +334,84 @@ def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
     (mutated LL - baseline).
 
     Interior scores come from the K3 kernel over every (read, 64-position
-    block) that holds a valid candidate; edge slots sit at static
-    window-frame rows ({0,1,2} and {J-2,J-1,J}) and come from the
-    window-frame edge program, spliced into the kernel grid before the
-    orientation mapping, so the whole grid maps and reduces in one pass.
-    Edge slots of windows shorter than `min_fast_edge` (where the edge
-    program's two regimes would overlap) take full-refill LLs instead
-    (_refill_pairs), as the JAX host loop's fallback pairs do."""
+    block) that holds a valid candidate; K3 builds its read windows and
+    patch transitions itself.  Edge slots sit at static window-frame rows
+    ({0,1,2} and {J-2,J-1,J}) and come from the window-frame edge
+    program, spliced into the kernel grid before the orientation
+    mapping, so the whole grid maps and reduces in one pass.  Edge slots
+    of windows shorter than `min_fast_edge` (where the edge program's two
+    regimes would overlap) take full-refill LLs instead (_refill_pairs),
+    as the JAX host loop's fallback pairs do.  Each stage runs inside a
+    torch.profiler range named in STAGES."""
+    from torch.profiler import record_function
+
     from pbccs_tpu_torch.ops.dense_score_cuda import (
-        PB, band_read_windows, dense_interior_scores_batch,
-        dense_patch_grids, edge_window_scores_batch, splice_edge_rows,
-        window_grid_to_template)
+        PB, dense_interior_scores_batch, edge_window_scores_batch,
+        splice_edge_rows, window_grid_to_template)
 
     Z, R = reads.shape[:2]
     jmax = st.tpl.shape[1]
     M = jmax * N_SLOTS
-
-    overlap, interior, wlen = slot_geometry(
-        st.tstarts[:, :, None], st.tends[:, :, None], strands[:, :, None],
-        start[None, None, :], end[None, None, :],
-        (mtype == INSERTION)[None, None, :])
-    geo = valid[:, None, :] & overlap & real_rows[:, :, None]
-    score_mask = geo & st.active[:, :, None]
-    fb = score_mask & ~interior & (wlen < min_fast_edge)
-
     flat = lambda a: a.reshape((Z * R,) + a.shape[2:])  # noqa: E731
-    tables = flat(table[:, None].expand((Z, R) + table.shape[1:]))
     W = st.alpha.vals.shape[-1]
     f_reads, f_rlens = flat(reads), flat(rlens)
     f_wt, f_wtr, f_wl = flat(st.win_tpl), flat(st.win_trans), flat(st.wlens)
     alpha_f = BandedMatrix(*map(flat, st.alpha))
     beta_f = BandedMatrix(*map(flat, st.beta))
     f_apre, f_bsuf = flat(st.a_prefix), flat(st.b_suffix)
-    ptrans = dense_patch_grids(f_wt, f_wtr, tables, f_wl)
 
-    # (read, position-block) live mask: a block is live iff a valid
-    # candidate POSITION maps into its window rows (+-1 covers the
-    # ins/sub-del row offset in the reverse frame)
-    NB = -(-jmax // PB)
-    pos_any = valid.reshape(Z, jmax, N_SLOTS).any(-1)
-    pref = torch.cat([torch.zeros(Z, 1, dtype=torch.int64,
-                                  device=reads.device),
-                      torch.cumsum(pos_any.long(), 1)], dim=1)
-    b = torch.arange(NB, device=reads.device)[None, None, :]
-    ts3, te3 = st.tstarts[:, :, None], st.tends[:, :, None]
-    fwd3 = strands[:, :, None] == 0
-    lo = torch.where(fwd3, ts3 + b * PB, te3 - (b + 1) * PB - 1)
-    hi = torch.where(fwd3, ts3 + (b + 1) * PB, te3 - b * PB + 1)
-    lo = (lo - 1).clamp(0, jmax)
-    hi = (hi + 1).clamp(0, jmax)
-    take = lambda idx: torch.gather(  # noqa: E731
-        pref, 1, idx.reshape(Z, -1).long()).reshape(Z, R, NB)
-    live = (take(hi) - take(lo)) > 0
-    live &= real_rows[:, :, None] & st.active[:, :, None]
+    with record_function(STAGES[0]):
+        overlap, interior, wlen = slot_geometry(
+            st.tstarts[:, :, None], st.tends[:, :, None],
+            strands[:, :, None], start[None, None, :], end[None, None, :],
+            (mtype == INSERTION)[None, None, :])
+        geo = valid[:, None, :] & overlap & real_rows[:, :, None]
+        score_mask = geo & st.active[:, :, None]
+        fb = score_mask & ~interior & (wlen < min_fast_edge)
+        tables = flat(table[:, None].expand((Z, R) + table.shape[1:]))
 
-    rwin = band_read_windows(f_reads, alpha_f.offsets, W)
-    grid_w = dense_interior_scores_batch(
-        f_reads, f_rlens, f_wt, f_wtr, f_wl, tables, alpha_f, beta_f,
-        f_apre, f_bsuf, W, ptrans, live.reshape(Z * R, NB), rwin)
-    e6 = edge_window_scores_batch(f_reads, f_rlens, f_wt, f_wtr, f_wl,
-                                  alpha_f, beta_f, f_apre, f_bsuf, ptrans,
-                                  W, rwin)
-    grid_w = splice_edge_rows(grid_w, e6, f_wl)
-    mapped = window_grid_to_template(grid_w, flat(strands),
-                                     flat(st.tstarts), flat(st.tends),
-                                     jmax).reshape(Z, R, M)
-    if bool(fb.any()):
-        pairs = torch.nonzero(fb, as_tuple=True)
-        mapped[pairs] = _refill_pairs(pairs, f_reads, f_rlens, f_wt, f_wtr,
-                                      f_wl, ptrans, strands, st.tstarts,
-                                      st.tends, end, W)
-    return torch.where(score_mask, mapped - st.baselines[:, :, None],
-                       0.0).sum(1)
+        # (read, position-block) live mask: a block is live iff a valid
+        # candidate POSITION maps into its window rows (+-1 covers the
+        # ins/sub-del row offset in the reverse frame)
+        NB = -(-jmax // PB)
+        pos_any = valid.reshape(Z, jmax, N_SLOTS).any(-1)
+        pref = torch.cat([torch.zeros(Z, 1, dtype=torch.int64,
+                                      device=reads.device),
+                          torch.cumsum(pos_any.long(), 1)], dim=1)
+        b = torch.arange(NB, device=reads.device)[None, None, :]
+        ts3, te3 = st.tstarts[:, :, None], st.tends[:, :, None]
+        fwd3 = strands[:, :, None] == 0
+        lo = torch.where(fwd3, ts3 + b * PB, te3 - (b + 1) * PB - 1)
+        hi = torch.where(fwd3, ts3 + (b + 1) * PB, te3 - b * PB + 1)
+        lo = (lo - 1).clamp(0, jmax)
+        hi = (hi + 1).clamp(0, jmax)
+        take = lambda idx: torch.gather(  # noqa: E731
+            pref, 1, idx.reshape(Z, -1).long()).reshape(Z, R, NB)
+        live = (take(hi) - take(lo)) > 0
+        live &= real_rows[:, :, None] & st.active[:, :, None]
+
+    with record_function(STAGES[1]):
+        grid_w = dense_interior_scores_batch(
+            f_reads, f_rlens, f_wt, f_wtr, f_wl, tables, alpha_f, beta_f,
+            f_apre, f_bsuf, W, live.reshape(Z * R, NB))
+    with record_function(STAGES[2]):
+        e6 = edge_window_scores_batch(f_reads, f_rlens, f_wt, f_wtr, f_wl,
+                                      tables, alpha_f, beta_f, f_apre, f_bsuf,
+                                      W)
+    with record_function(STAGES[3]):
+        grid_w = splice_edge_rows(grid_w, e6, f_wl)
+        mapped = window_grid_to_template(grid_w, flat(strands),
+                                         flat(st.tstarts), flat(st.tends),
+                                         jmax).reshape(Z, R, M)
+    with record_function(STAGES[4]):
+        if bool(fb.any()):
+            pairs = torch.nonzero(fb, as_tuple=True)
+            mapped[pairs] = _refill_pairs(pairs, f_reads, f_rlens, f_wt,
+                                          f_wtr, f_wl, tables, strands,
+                                          st.tstarts, st.tends, end, W)
+    with record_function(STAGES[3]):
+        return torch.where(score_mask, mapped - st.baselines[:, :, None],
+                           0.0).sum(1)
 
 
 def qv_from_slot_grid(totals: torch.Tensor, valid: torch.Tensor

@@ -15,9 +15,12 @@ host-draft and polish wall seconds, device busy time (the union of CUDA
 kernel intervals) and the device's idle share of the polish wall time,
 the number of kernel launches (and of each of the port's kernels), CUDA
 time grouped by kernel (arrow_fill, quiver_fill, dense_score, and
-PyTorch's own kernels by operator), and the CUDA time of the port's
-kernels and of everything else (the torch glue and copies).  Needs a CUDA device; exits non-zero
-without one."""
+PyTorch's own kernels by operator), the CUDA time of the port's kernels
+and of everything else (the torch glue and copies), and the CUDA time
+and launches of the torch glue in each stage of
+device_refine.score_slot_grid (its torch.profiler ranges,
+device_refine.STAGES).  Needs a CUDA device;
+exits non-zero without one."""
 
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import chip_smoke  # noqa: E402
 from pbccs_tpu_torch import pipeline  # noqa: E402
+from pbccs_tpu_torch.parallel.device_refine import STAGES  # noqa: E402
 
 
 def _union_ms(intervals) -> float:
@@ -54,6 +58,28 @@ def _union_ms(intervals) -> float:
 
 #: name prefixes of the port's hand-written kernels (csrc/*.cu)
 OUR_KERNELS = ("arrow_fill_kernel", "quiver_fill_kernel", "dense_score_kernel")
+
+
+def stage_totals(events, names) -> dict:
+    """CUDA ms and kernel launches under each torch.profiler range named in
+    `names` (the kernels attached to the range's CPU events and to all
+    their descendants), summed over the range's occurrences.  The port's
+    own kernels, launched through ctypes and not from a PyTorch operator,
+    are not attached to any range: this counts the torch glue of each
+    stage, and cuda_ms_by_kernel holds the port's kernels."""
+    def kernels(e):
+        out = list(e.kernels)
+        for ch in e.cpu_children:
+            out += kernels(ch)
+        return out
+
+    totals = {n: {"cuda_ms": 0.0, "launches": 0} for n in names}
+    for e in events:
+        if e.name in totals and e.device_type == torch.autograd.DeviceType.CPU:
+            ks = kernels(e)
+            totals[e.name]["cuda_ms"] += sum(k.duration for k in ks) / 1e3
+            totals[e.name]["launches"] += len(ks)
+    return totals
 
 
 def kernel_group(name: str) -> str:
@@ -107,8 +133,10 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t_draft, t_polish = run(chunks, settings, batch)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = prof.events()
+    kernels = [e for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)]
     by_name: dict[str, float] = {}
     counts: dict[str, int] = {}
     for e in kernels:
@@ -131,7 +159,8 @@ def main() -> int:
         "cuda_ms_port_kernels": ours,
         "cuda_ms_glue": sum(by_name.values()) - ours,
         "port_kernel_launches": counts,
-        "cuda_ms_by_kernel": dict(top[:20])}), flush=True)
+        "cuda_ms_by_kernel": dict(top[:20]),
+        "slot_grid_stages": stage_totals(events, STAGES)}), flush=True)
     return 0
 
 

@@ -105,8 +105,8 @@ def test_edge_scores_match(seed, clip):
     reads, rlens, wt, wtr, wl = _port_inputs(c)
     ptrans = tds.dense_patch_grids(wt, wtr, torch.as_tensor(tables), wl)
     got = tds.edge_window_scores_batch(
-        reads, rlens, wt, wtr, wl, st.alpha, st.beta, st.apre, st.bsuf,
-        ptrans, W).numpy()
+        reads, rlens, wt, wtr, wl, torch.as_tensor(tables), st.alpha,
+        st.beta, st.apre, st.bsuf, W).numpy()
     want = np.asarray(jds.edge_window_scores_batch(
         j["reads"], j["rlens"], j["win_tpl"], j["win_trans"], j["wlens"],
         fill[0], fill[1], fill[4], fill[5], jnp.asarray(ptrans.numpy()), W))

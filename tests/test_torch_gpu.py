@@ -11,9 +11,12 @@ conftest:
 Tolerances: fills (K1 and the Quiver K2) bitwise equal to their plain
 versions (same association, -fmad=false -ftz=true; K1's log-scales
 within 1e-6 relative, torch's log against the kernel's logf); dense
-interior scores rtol 2e-5 / atol 2e-3 (the reductions sum lanes in
-another order); the card's process_chunks agrees with the CPU's on the
-consensus and within 1 QV."""
+interior scores (K3) within 1e-6 relative (the same association and
+band-sum order, so bitwise is expected; torch's log against logf); the
+card's process_chunks agrees with the CPU's on the consensus and within
+1 QV."""
+
+import inspect
 
 import numpy as np
 import pytest
@@ -115,9 +118,10 @@ def test_fill_scan_kernel_matches_plain(cuda, W, backward):
     _assert_same_fill(got[backward], want[backward])
 
 
-@pytest.mark.parametrize("W", K1_WIDTHS)
+@pytest.mark.parametrize("W", list(fc.K1_WIDTHS))
 def test_arrow_fill_fused_matches_plain(cuda, W):
-    """Alpha and beta in one launch, each against its plain version."""
+    """Alpha and beta in one launch, each against its plain version, at
+    every band width K1 is built for."""
     args = _k1_args(cuda, W)
     before = fc.arrow_fill.launches
     got = fc.arrow_fill(*args)
@@ -232,34 +236,58 @@ def test_quiver_process_chunks_card_matches_cpu(cuda):
     assert np.abs(a.qvs.astype(int) - b.qvs.astype(int)).max() <= 1
 
 
-def test_dense_score_kernel_matches_plain(cuda):
-    W = 64
+def _k3_args(cuda, W, guided: bool):
+    """K3's arguments on make_case's 5 reads at band width W: the fused
+    K1 fills (checked bitwise against K1's plain version on the same
+    card) on diagonal band offsets, or on offsets guided by a first alpha
+    fill; every other 64-position block of read 0 dead."""
+    from pbccs_tpu_torch.ops.fwdbwd import guided_band_offsets
+
     c = make_case(22, L=250, n_reads=5)
     reads, rlens, wt, wtr, wl = _on(c, cuda)
-    alpha = fc.forward_batch(reads, rlens, wt, wtr, wl, W)
-    beta = fc.backward_batch(reads, rlens, wt, wtr, wl, W)
     R, Jm = wt.shape
+    offs = band_offsets(rlens, wl, Jm + 1, W)
+    k1 = (reads, rlens, wt, wtr.contiguous(), wl)
+    if guided:
+        alpha = fc.forward_batch(*k1, W)
+        offs = guided_band_offsets(alpha.vals, alpha.offsets, rlens, wl, W)
+    args = k1 + (offs, W, fc.MISMATCH_PROBABILITY)
+    (av, als), (bv, bls) = fc.arrow_fill(*args)
+    for g, w in zip(((av, als), (bv, bls)), fc.arrow_fill_plain(*args)):
+        _assert_same_fill(g, w)
     NB = -(-Jm // ds.PB)
-    rb, rn = ds.band_read_windows(reads, alpha.offsets, W)
+    live = torch.ones(R, NB, dtype=torch.int32, device=cuda)
+    live[0, 1::2] = 0
     tables = torch.as_tensor(np.broadcast_to(c["table"], (R, 8, 4)).copy(),
                              device=cuda)
-    live = torch.ones(R, NB, dtype=torch.int32, device=cuda)
-    live[0, 1] = 0
-    i32 = torch.int32
-    args = (alpha.vals, beta.vals, rb.contiguous(), rn.contiguous(),
-            alpha.offsets.to(i32).contiguous(),
-            scale_prefix(alpha.log_scales).contiguous(),
-            scale_suffix(beta.log_scales).contiguous(), wt.to(i32).contiguous(),
-            wtr.contiguous(), ds.dense_patch_grids(wt, wtr, tables, wl),
-            rlens.to(i32).contiguous(), live)
-    got = ds.dense_score(*args).cpu().numpy()
-    want = ds.dense_score_plain(*args).cpu().numpy()
+    return (av, bv, offs, scale_prefix(als).contiguous(),
+            scale_suffix(bls).contiguous(), reads, rlens, wt, wl,
+            wtr.contiguous(), tables, live), c["wlens"]
+
+
+@pytest.mark.parametrize("W", list(ds.K3_WIDTHS))
+@pytest.mark.parametrize("guided", [False, True])
+def test_dense_score_kernel_matches_plain(cuda, W, guided):
+    """K3 against its plain version at every built band width, on K1's
+    fills at that width (diagonal and guided band offsets): interior
+    slots within 1e-6 relative (the nine link sums are summed in the same
+    order, so bitwise is expected), dead blocks zeros."""
+    args, wlens = _k3_args(cuda, W, guided)
+    before = ds.dense_score.launches
+    got = ds.dense_score(*args)
+    assert ds.dense_score.launches == before + 1
+    want = ds.dense_score_plain(*args)
+    torch.cuda.synchronize()
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    Jm = got.shape[1]
     p = np.arange(Jm)[None, :, None]
     endoff = np.array([1, 1, 1, 1, 0, 0, 0, 0, 1])
-    interior = (p >= 3) & (p + endoff <= c["wlens"][:, None, None] - 2)
-    np.testing.assert_allclose(got[interior], want[interior], rtol=2e-5,
-                               atol=2e-3)
-    assert not got[0, ds.PB: 2 * ds.PB].any()
+    interior = (p >= 3) & (p + endoff <= wlens[:, None, None] - 2)
+    assert interior.sum() > 1000
+    np.testing.assert_allclose(got[interior], want[interior], rtol=1e-6,
+                               atol=0)
+    for b in range(1, -(-Jm // ds.PB), 2):
+        assert not got[0, b * ds.PB: (b + 1) * ds.PB].any()
 
 
 def test_wrappers_check_inputs(cuda):
@@ -294,6 +322,21 @@ def test_wrappers_check_inputs(cuda):
         bad[i] = args[i].cpu()
         with pytest.raises(ValueError):
             quiver_fill(*bad, False)
+    args = list(_k3_args(cuda, 64, False)[0])
+    for W in (48, 224):                               # W not built
+        wide = [torch.zeros(*a.shape[:2], W, device=cuda) for a in args[:2]]
+        with pytest.raises(ValueError):
+            ds.dense_score(*wide, *args[2:])
+    for i, cast in ((5, torch.int32), (7, torch.int32), (10, torch.float64)):
+        bad = list(args)
+        bad[i] = args[i].to(cast)
+        with pytest.raises(TypeError):
+            ds.dense_score(*bad)
+    for i in (0, 5, 11):                              # one tensor on the CPU
+        bad = list(args)
+        bad[i] = args[i].cpu()
+        with pytest.raises(ValueError):
+            ds.dense_score(*bad)
 
 
 def test_process_chunks_card_matches_cpu(cuda):
@@ -317,24 +360,64 @@ def test_process_chunks_card_matches_cpu(cuda):
         assert np.abs(a[k].qvs.astype(int) - b[k].qvs.astype(int)).max() <= 1
 
 
+def test_process_chunks_long_template_card_matches_cpu(cuda):
+    """A 3.1 kb template: its bucket is over 3 kb, so the fills take one
+    argmax-guided pass (K1 forward-only launches, then beta on alpha's
+    band) and K3 scores on guided offsets; the card's consensus is the
+    CPU's, QVs within 1."""
+    from pbccs_tpu_torch.pipeline import Chunk, Subread, process_chunks
+
+    rng = np.random.default_rng(27)
+    _, reads, _, snr = simulate_zmw(rng, 3100, 3)
+    chunks = [Chunk("long", [Subread(f"long/{i}", r)
+                             for i, r in enumerate(reads)], snr)]
+    fills, dense = fc.arrow_fill.launches, ds.dense_score.launches
+    gpu = process_chunks(chunks)
+    assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
+    cpu = process_chunks(chunks, device="cpu")
+    assert gpu.counts == cpu.counts and len(gpu.results) == 1
+    a, b = gpu.results[0], cpu.results[0]
+    assert a.sequence == b.sequence
+    assert np.abs(a.qvs.astype(int) - b.qvs.astype(int)).max() <= 1
+
+
 def test_process_chunks_builds_no_coefficient_plane(cuda, monkeypatch):
-    """On the card the Arrow path never runs the plain version's
-    coefficient precompute: with it patched to raise, process_chunks still
-    polishes every ZMW, on K1."""
+    """On the card the Arrow path never runs the plain versions' plane
+    builds: with K1's coefficient precompute and the full-size forms of
+    K3's read-window and patch-grid functions patched to raise,
+    process_chunks still polishes every ZMW, on K1 and K3 (the edge
+    programs and refills build the columns and rows they read)."""
     from pbccs_tpu_torch.pipeline import Chunk, Subread, process_chunks
 
     def no_planes(*args, **kwargs):
         raise AssertionError("a coefficient plane was built on the card")
 
+    def partial_only(fn, subset):
+        # a call that leaves its column / position list at None, however
+        # its arguments are passed, builds the full plane
+        sig = inspect.signature(fn)
+
+        def wrapper(*args, **kwargs):
+            if sig.bind(*args, **kwargs).arguments.get(subset) is None:
+                raise AssertionError(f"a full {fn.__name__} plane was built "
+                                     "on the card")
+            return fn(*args, **kwargs)
+        return wrapper
+
     monkeypatch.setattr(fc, "_forward_coeffs", no_planes)
     monkeypatch.setattr(fc, "_backward_coeffs", no_planes)
+    monkeypatch.setattr(ds, "band_read_windows",
+                        partial_only(ds.band_read_windows, "cols"))
+    monkeypatch.setattr(ds, "dense_patch_grids",
+                        partial_only(ds.dense_patch_grids, "pos"))
     rng = np.random.default_rng(26)
     chunks = []
     for z in range(2):
         _, reads, _, snr = simulate_zmw(rng, 300, 5)
         chunks.append(Chunk(f"p/{z}", [Subread(f"p/{z}/{i}", r)
                                        for i, r in enumerate(reads)], snr))
-    before = fc.arrow_fill.launches
+    before = fc.arrow_fill.launches, ds.dense_score.launches
     out = process_chunks(chunks)
-    assert fc.arrow_fill.launches > before
+    assert fc.arrow_fill.launches > before[0]
+    assert ds.dense_score.launches > before[1]
     assert out.total == 2 and out.results
