@@ -60,7 +60,23 @@ script exits non-zero):
      columns) and a bucket-growth task (a draft missing every fifth
      base) through BatchPolisher.refine + consensus_qvs on the card and
      on the CPU: the same results, K1 launched by the tiny window's
-     refills, the bucket grown.
+     refills, the bucket grown;
+  9. serial: process_chunks(batch_polish=False) over the draw's first 4
+     ZMWs (ArrowMultiReadScorer per ZMW: fills on K1, interior scores on
+     K3, edge pairs refilled on K1), launch counters and quarantine
+     events zeroed just before and read just after: the same sequences
+     as phase 4's batch results, QVs within 1, K1 and K3 launched, no
+     quarantine event; seconds and launches per ZMW;
+ 10. cli: the 64 ZMWs written as a P6-C4 subread BAM under build/, then
+     pbccs_tpu_torch.cli.run([... "--chunkSize", "32"]) on the card
+     (two worker threads), counters zeroed just before and read just
+     after; its BAM, .pbi and report read back: the records byte-equal
+     to process_chunks on the same gated batches (the port's reader and
+     CLI gates on that BAM), no Other tally, no quarantine event, K1 and
+     K3 launched, yield and mean identity at least phase 4's (within
+     CLI_IDENT_SLACK); wall time and peak device memory beside phase
+     4's, and the wall of the same run on one worker thread (the same
+     BAM bytes), which the work queue's overlap is measured against.
 Then the card's name and power limit, the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -86,6 +102,7 @@ N_ZMWS = 64
 BATCH = 32
 N_CROSS = 4
 N_QUIVER = 4
+N_SERIAL = 4
 QUIVER_SMALL = (300, 5)     # template length, passes of the card-vs-CPU ZMW
 # published peak of one H100 SXM (NVIDIA data sheet): HBM bytes/s
 PEAK_BYTES = 3.35e12
@@ -599,7 +616,7 @@ def phase_main(chunks, truths) -> dict:
         raise AssertionError("main path tallied ZMWs as Other")
     if tally.total != len(chunks):
         raise AssertionError(f"tally counts {tally.total} of {len(chunks)}")
-    return out
+    return out, tally
 
 
 def phase_cross(chunks) -> dict:
@@ -945,6 +962,193 @@ def phase_fallbacks(rng) -> dict:
     return out
 
 
+def _quarantine_events() -> dict:
+    from pbccs_tpu_torch.resilience import quarantine
+
+    return quarantine.event_counts()
+
+
+def _check_no_quarantine(where: str, events: dict) -> None:
+    if any(events.values()):
+        raise AssertionError(f"{where}: quarantine events {events}")
+
+
+def phase_serial(chunks, truths, batch_tally) -> dict:
+    """The serial Arrow path (ArrowMultiReadScorer per ZMW) on the card
+    against phase 4's batch results for the same ZMWs."""
+    from pbccs_tpu_torch.pipeline import Failure, process_chunks
+    from pbccs_tpu_torch.resilience import quarantine
+
+    quarantine.reset_event_counts()
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    t0 = time.monotonic()
+    tally = process_chunks(chunks, batch_polish=False, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    events = _quarantine_events()
+    ids = {c.id for c in chunks}
+    batch = {r.id: r for r in batch_tally.results if r.id in ids}
+    serial = {r.id: r for r in tally.results}
+    same_ids = sorted(batch) == sorted(serial)
+    same_seq = same_ids and all(serial[k].sequence == batch[k].sequence
+                                for k in serial)
+    qv_diff = max((int(np.abs(serial[k].qvs.astype(np.int64)
+                              - batch[k].qvs.astype(np.int64)).max())
+                   for k in serial if k in batch
+                   and len(serial[k].qvs) == len(batch[k].qvs)), default=0)
+    truth = {c.id: t for c, t in zip(chunks, truths)}
+    out = {"phase": "serial", "zmws": len(chunks),
+           "tally": {f.value: c for f, c in tally.counts.items() if c},
+           "s_per_zmw": wall / len(chunks), "wall_s": wall,
+           "launches": launches,
+           "launches_per_zmw": {k: v / len(chunks)
+                                for k, v in launches.items()},
+           "same_sequences_as_batch": same_seq,
+           "qv_max_abs_diff_vs_batch": qv_diff,
+           "identity": [identity(r.sequence, truth[r.id])
+                        for r in tally.results],
+           "quarantine_events": events}
+    emit(out)
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        raise AssertionError(f"the serial path did not launch K1 and K3: "
+                             f"{launches}")
+    _check_no_quarantine("serial", events)
+    if tally.counts[Failure.OTHER] or not serial:
+        raise AssertionError(f"serial tally {out['tally']}")
+    if not same_seq or qv_diff > 1:
+        raise AssertionError("the serial path disagrees with phase 4's "
+                             "batch results")
+    return out
+
+
+#: the read group of the CLI phase's subread BAM: P6-C4 (the chemistry
+#: the CLI's gate accepts)
+CLI_MOVIE = "m140905_042212_sidney_c100564852550000001823085912221377_s1_X0"
+CLI_CHUNK = 32
+#: mean identity the CLI may lose against phase 4: 0.1 base per 2 kb ZMW
+CLI_IDENT_SLACK = 5e-5
+
+
+def write_subread_bam(path: str, chunks) -> None:
+    """The simulated ZMWs as a PacBio subread BAM (one P6-C4 read group,
+    hole numbers 0..n-1, full-pass context flags, per-ZMW `sn`)."""
+    from pbccs_tpu_torch.io.bam import (BamHeader, BamRecord, BamWriter,
+                                        ReadGroupInfo, make_read_group_id)
+    from pbccs_tpu_torch.models.arrow.params import decode_bases
+
+    header = BamHeader(read_groups=[ReadGroupInfo(
+        CLI_MOVIE, "SUBREAD", binding_kit="100356300",
+        sequencing_kit="100356200", basecaller_version="2.3.0")])
+    rg = make_read_group_id(CLI_MOVIE, "SUBREAD")
+    with BamWriter(path, header) as bw:
+        for hole, chunk in enumerate(chunks):
+            start = 0
+            for read in chunk.reads:
+                end = start + len(read.seq)
+                bw.write(BamRecord(
+                    name=f"{CLI_MOVIE}/{hole}/{start}_{end}",
+                    seq=decode_bases(read.seq), tags={
+                        "RG": rg, "zm": hole, "cx": 3,
+                        "rq": float(read.read_accuracy),
+                        "sn": [float(x) for x in chunk.snr]}))
+                start = end + 50
+
+
+def phase_cli(chunks, truths, main_path) -> dict:
+    """The batch CLI on the card over the simulated ZMWs as a subread
+    BAM, held against process_chunks on the same gated batches."""
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch.io.bam import BamReader, encode_record
+    from pbccs_tpu_torch.io.pbi import PbiIndex
+    from pbccs_tpu_torch.pipeline import ResultTally, process_chunks
+    from pbccs_tpu_torch.resilience import quarantine
+    from pbccs_tpu_torch.runtime.logging import Logger
+    from pbccs_tpu_torch.runtime.whitelist import Whitelist
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "cli_smoke")
+    os.makedirs(d, exist_ok=True)
+    in_bam, out_bam = os.path.join(d, "subreads.bam"), os.path.join(
+        d, "ccs.bam")
+    report = os.path.join(d, "ccs_report.csv")
+    write_subread_bam(in_bam, chunks)
+    argv = [out_bam, in_bam, "--chunkSize", str(CLI_CHUNK), "--reportFile",
+            report, "--logLevel", "WARN"]
+
+    quarantine.reset_event_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t0 = time.monotonic()
+    rc = cli.run(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    events = _quarantine_events()
+    peak = torch.cuda.max_memory_allocated()
+    # the same run on one worker thread: draft and polish in turn, so
+    # the difference is what the work queue's overlap hides
+    one_bam = os.path.join(d, "ccs_1worker.bam")
+    t1 = time.monotonic()
+    cli.run([one_bam, *argv[1:], "--numThreads", "1"])
+    torch.cuda.synchronize()
+    wall_one = time.monotonic() - t1
+
+    with BamReader(out_bam) as r:
+        records = list(r)
+    pbi = PbiIndex(out_bam + ".pbi")
+    text = open(report).read()
+    # the reference: the port's reader and CLI gates on the same BAM, then
+    # process_chunks on each gated batch
+    args = cli.build_parser().parse_args(argv)
+    gate_tally = ResultTally()
+    want = []
+    for batch in cli.gated_chunks([in_bam], Whitelist("all"), args,
+                                  Logger.default(), gate_tally):
+        want += process_chunks(batch, device="cuda").results
+    same = [encode_record(r) for r in records] == [
+        encode_record(cli.result_record(r)) for r in want]
+    truth = {int(c.id.split("/")[1]): t for c, t in zip(chunks, truths)}
+    idents = [identity(r.seq, truth[r.tags["zm"]]) for r in records]
+    out = {"phase": "cli", "zmws": len(chunks), "chunk_size": CLI_CHUNK,
+           "exit_code": rc, "wall_s": wall, "one_worker_wall_s": wall_one,
+           "one_worker_same_bam": open(one_bam, "rb").read()
+           == open(out_bam, "rb").read(),
+           "phase4_draft_polish_s": main_path["wall_s"],
+           "max_memory_allocated": peak,
+           "records": len(records), "pbi_reads": pbi.n_reads,
+           "pbi_holes_match": [int(h) for h in pbi.holes]
+           == [r.tags["zm"] for r in records],
+           "report": text.strip().splitlines(),
+           "same_as_process_chunks": same,
+           "identity_mean": float(np.mean(idents)) if idents else None,
+           "identity_min": float(np.min(idents)) if idents else None,
+           "phase4_identity_mean": main_path["identity_mean"],
+           "launches": launches, "quarantine_events": events}
+    emit(out)
+    if rc != 0 or not records or not same or not out["pbi_holes_match"] \
+            or not out["one_worker_same_bam"]:
+        raise AssertionError("the CLI's records, index or exit code are "
+                             "wrong")
+    if "Exception thrown" in text:
+        raise AssertionError("the CLI tallied ZMWs as Other")
+    _check_no_quarantine("cli", events)
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        raise AssertionError(f"the CLI did not launch K1 and K3: {launches}")
+    # the BAM's `sn` tag is float32, so the SNR tables may differ from
+    # phase 4's in their last bit: the identity may move by a fraction of
+    # a base per ZMW, not more
+    if len(records) < main_path["tally"].get("Success", 0) or \
+            out["identity_mean"] < main_path["identity_mean"] - CLI_IDENT_SLACK:
+        raise AssertionError("the CLI's yield or identity fell below "
+                             "phase 4's")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -966,13 +1170,15 @@ def main() -> int:
     dense = phase_dense(fx, kept)
     W = fx["W"]
     del fx, kept    # phase 4's peak memory is the main path's alone
-    main_path = phase_main(chunks, truths)
+    main_path, main_tally = phase_main(chunks, truths)
     phase_cross(chunks[:N_CROSS])
     k2 = phase_quiver_fill(quiver_fixture(chunks[0], truths[0], "cuda"))
     small, _ = simulate_chunks(rng, 1, QUIVER_SMALL[0],
                                (QUIVER_SMALL[1],) * 2)
     quiver = phase_quiver(chunks[:N_QUIVER], truths[:N_QUIVER], small)
     phase_fallbacks(rng)
+    phase_serial(chunks[:N_SERIAL], truths[:N_SERIAL], main_tally)
+    phase_cli(chunks, truths, main_path)
 
     # K1's launch on the main path: alpha and beta together at the
     # schedule's W

@@ -5,8 +5,9 @@ Port of pbccs_tpu.models.arrow.mutations, the parts the port runs: the
 Mutation record and the host algebra the generic refinement loop
 (models.arrow.refine.refine_consensus, the Quiver polish) drives --
 enumerate_unique, unique_nearby_mutations, apply_mutations,
-target_to_query_positions, best_subset, qvs_from_neg_sums -- and the
-per-position slot order of the device-resident loop (subs A/C/G/T, ins
+target_to_query_positions, best_subset, qvs_from_neg_sums -- the
+serial scorer's strand and slot helpers (reverse_complement_mutation,
+mutation_slot), and the per-position slot order of the device-resident loop (subs A/C/G/T, ins
 A/C/G/T, del: the enumeration order of UniqueSingleBaseMutationEnumerator,
 reference MutationEnumerator.cpp:111-147).  Plain numpy and Python:
 mutation lists are small and data dependent.
@@ -182,6 +183,25 @@ def best_subset(scored: list[Mutation], separation: int) -> list[Mutation]:
         lo, hi = best.start - separation, best.start + separation
         pool = [m for m in pool if not (lo <= m.start <= hi)]
     return out
+
+
+_COMPLEMENT_BASE = {-1: -1, 0: 3, 1: 2, 2: 1, 3: 0}
+
+
+def reverse_complement_mutation(m: Mutation, tpl_len: int) -> Mutation:
+    """The same edit expressed on the reverse-complement template
+    (MultiReadMutationScorer.cpp:343-348)."""
+    return Mutation(tpl_len - m.end, tpl_len - m.start, m.mtype,
+                    _COMPLEMENT_BASE[m.new_base], m.score)
+
+
+def mutation_slot(mtype: np.ndarray, new_base: np.ndarray) -> np.ndarray:
+    """Each mutation's slot in the 9-slot grid of its start position
+    (sub b -> b, ins b -> 4 + b, del -> 8)."""
+    mtype = np.asarray(mtype)
+    new_base = np.asarray(new_base)
+    return np.where(mtype == SUBSTITUTION, new_base,
+                    np.where(mtype == INSERTION, 4 + new_base, 8))
 
 
 # ---------------------------------------------------------------------- QVs

@@ -1,8 +1,10 @@
 """ctypes bindings for the native host library (native/pbccs_native.cpp):
-the POA engine and sparse-DP seed chaining of the draft stage.
+the POA engine and sparse-DP seed chaining of the draft stage, and the
+multithreaded BGZF codec of the CLI's BAM and .pbi output.
 
 The library is optional: every entry point has a pure-Python equivalent
-(poa.graph.PoaGraph, align.seeds.chain_seeds), so a missing or
+(poa.graph.PoaGraph, align.seeds.chain_seeds, io.bam's zlib path), so
+a missing or
 unbuildable .so degrades to the fallback.  It is the same library the
 JAX package loads (`make -C native` builds it; the loader rebuilds it
 once when it is missing or older than its source), and the same
@@ -64,6 +66,13 @@ def _load() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(_LIB_PATH)
     except OSError:
         return None
+    lib.pbccs_bgzf_compress.restype = ctypes.c_int64
+    lib.pbccs_bgzf_compress.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_int64]
+    lib.pbccs_bgzf_decompress.restype = ctypes.c_int64
+    lib.pbccs_bgzf_decompress.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64]
     lib.pbccs_chain_seeds.restype = ctypes.c_int32
     lib.pbccs_chain_seeds.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
@@ -96,6 +105,44 @@ def _load() -> Optional[ctypes.CDLL]:
 
 def available() -> bool:
     return _load() is not None
+
+
+def bgzf_compress(data: bytes, level: int = 6,
+                  nthreads: int | None = None) -> Optional[bytes]:
+    """Multithreaded BGZF compression of `data` (no EOF block appended);
+    None if the native library is unavailable or fails."""
+    lib = _load()
+    if lib is None:
+        return None
+    if not data:
+        return b""
+    nthreads = nthreads or min(8, os.cpu_count() or 1)
+    cap = len(data) + (len(data) // (64 * 1024) + 2) * 1024 + 1024
+    out = ctypes.create_string_buffer(cap)
+    n = lib.pbccs_bgzf_compress(data, len(data), level, nthreads, out, cap)
+    if n < 0:
+        return None
+    return out.raw[:n]
+
+
+def bgzf_decompress(data: bytes,
+                    expected_size: int | None = None) -> Optional[bytes]:
+    """Decompress a concatenated-BGZF-block byte stream; None on failure."""
+    lib = _load()
+    if lib is None:
+        return None
+    if not data:
+        return b""
+    cap = expected_size if expected_size is not None \
+        else max(len(data) * 6, 1 << 20)
+    while True:
+        out = ctypes.create_string_buffer(cap)
+        n = lib.pbccs_bgzf_decompress(data, len(data), out, cap)
+        if n >= 0:
+            return out.raw[:n]
+        if n != -2 or expected_size is not None or cap > (1 << 31):
+            return None            # -1 = corrupt input; give up immediately
+        cap *= 4                   # -2 = under-capacity; grow and retry
 
 
 class NativePoa:

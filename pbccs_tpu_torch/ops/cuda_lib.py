@@ -10,7 +10,14 @@ Nothing here runs at import time.
 Every kernel entry point has the signature convention
     int pbccs_<name>(<device pointers>..., <ints>..., void* stream)
 and returns cudaGetLastError() after its launch; the Python wrappers
-check their tensors (`check_tensor`) and raise on a non-zero return."""
+check their tensors (`check_tensor`) and raise on a non-zero return.
+A failed build, load or launch raises KernelError, and a wrapper that
+refuses its arguments before a launch (dtype, shape, alignment, a band
+width that was not built) raises LaunchRefused, a KernelError: both are
+faults of the card or of the program, never of one ZMW's data (the
+pipeline re-raises them instead of isolating a poison ZMW).  Each wrapper counts its launches
+in a `launches` attribute through `count_launch`, under one lock, since
+the CLI's worker threads launch concurrently."""
 
 from __future__ import annotations
 
@@ -38,9 +45,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("arrow_fill", "quiver_fill", "dense_score")
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 #: per-kernel build record: seconds, nvcc/ptxas output (filled by builds)
 BUILD_LOG: dict[str, dict] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel library failed to build or load, or a launch failed."""
+
+
+class LaunchRefused(KernelError, ValueError, TypeError):
+    """A kernel wrapper refused its arguments before the launch.  Also a
+    ValueError and a TypeError, the kinds of a plain argument check."""
 
 
 def nvcc_path() -> str:
@@ -50,8 +67,8 @@ def nvcc_path() -> str:
     cand = "/usr/local/cuda/bin/nvcc"
     if os.path.exists(cand):
         return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
-                       "machine with the card")
+    raise KernelError("nvcc not found: the CUDA kernels are built on the "
+                      "machine with the card")
 
 
 def _paths(name: str) -> tuple[str, str]:
@@ -95,7 +112,7 @@ def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
         os.replace(tmp, lib)
     if failed:
         msg = "\n".join(f"--- {n}:\n{BUILD_LOG[n]['output']}" for n in failed)
-        raise RuntimeError(f"nvcc failed for {failed}:\n{msg}")
+        raise KernelError(f"nvcc failed for {failed}:\n{msg}")
     return BUILD_LOG
 
 
@@ -105,7 +122,11 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(_paths(name)[1])
+            try:
+                lib = ctypes.CDLL(_paths(name)[1])
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernel: {e}") \
+                    from e
             _libs[name] = lib
         return lib
 
@@ -113,14 +134,21 @@ def load(name: str) -> ctypes.CDLL:
 def check(err: int, what: str) -> None:
     """Raise on a non-zero cudaError_t returned by a launch."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise KernelError(f"{what}: CUDA launch failed with error {err}")
+
+
+def count_launch(wrapper) -> None:
+    """Add one to a kernel wrapper's launch count (thread-safe)."""
+    with _count_lock:
+        wrapper.launches += 1
 
 
 def check_tensor(what: str, name: str, x, dtype, ndim: int) -> None:
     """Raise unless x is a contiguous `ndim`-d tensor of `dtype` (the
     kernels take raw pointers and fixed element types)."""
     if x.dtype != dtype:
-        raise TypeError(f"{what}: {name} must be {dtype}, got {x.dtype}")
+        raise LaunchRefused(f"{what}: {name} must be {dtype}, got "
+                            f"{x.dtype}")
     if x.dim() != ndim or not x.is_contiguous():
-        raise ValueError(f"{what}: {name} must be a contiguous {ndim}-d "
-                         f"tensor, got shape {tuple(x.shape)}")
+        raise LaunchRefused(f"{what}: {name} must be a contiguous {ndim}-d "
+                            f"tensor, got shape {tuple(x.shape)}")

@@ -318,14 +318,16 @@ def dense_score_plain(alpha, beta, offsets, apre, bsuf, reads, rlens,
 
 
 def _check(name: str, x: torch.Tensor, shape: tuple, dtype, dev) -> None:
+    refuse = cuda_lib.LaunchRefused
     if x.device != dev:
-        raise ValueError(f"{name} is on {x.device}, expected {dev}")
+        raise refuse(f"dense_score: {name} is on {x.device}, expected {dev}")
     if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+        raise refuse(f"dense_score: {name} must be {dtype}, got {x.dtype}")
     if tuple(x.shape) != shape:
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
+        raise refuse(f"dense_score: {name} has shape {tuple(x.shape)}, "
+                     f"expected {shape}")
     if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+        raise refuse(f"dense_score: {name} must be contiguous")
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 13 + [ctypes.c_int] * 6
@@ -344,7 +346,8 @@ def dense_score(alpha, beta, offsets, apre, bsuf, reads, rlens, win_tpl,
     (R, ceil(Jm/64)) int32, 0 = dead block (written as zeros).  CPU
     tensors run dense_score_plain; CUDA tensors launch
     csrc/dense_score.cu on the current stream (no fallback; W must be in
-    K3_WIDTHS)."""
+    K3_WIDTHS; arguments it cannot launch on raise
+    cuda_lib.LaunchRefused)."""
     dev = alpha.device
     R, nc, W = alpha.shape
     Imax, Jm = reads.shape[1], win_tpl.shape[1]
@@ -359,22 +362,22 @@ def dense_score(alpha, beta, offsets, apre, bsuf, reads, rlens, win_tpl,
             ("tables", tables, (R, 8, 4), f32), ("live", live, (R, NB), i32))
     for name, x, _, _ in args:
         if x.device != dev:
-            raise ValueError(f"dense_score: {name} is on {x.device}, alpha "
-                             f"on {dev}")
+            raise cuda_lib.LaunchRefused(f"dense_score: {name} is on "
+                                         f"{x.device}, alpha on {dev}")
     if dev.type == "cpu":
         return dense_score_plain(alpha, beta, offsets, apre, bsuf, reads,
                                  rlens, win_tpl, wlens, win_trans, tables,
                                  live)
-    if dev.type != "cuda":
-        raise ValueError(f"dense_score: unsupported device {dev}")
     for name, x, shape, dtype in args:
         _check(name, x, shape, dtype, dev)
     if W not in K3_WIDTHS:
-        raise ValueError(f"dense_score: band width {W} is not one of "
-                         f"{K3_WIDTHS}")
+        raise cuda_lib.LaunchRefused(f"dense_score: band width {W} is not "
+                                     f"one of {K3_WIDTHS}")
     if win_trans.data_ptr() % 16 or tables.data_ptr() % 16:
-        raise ValueError("dense_score: win_trans and tables must be 16-byte "
-                         "aligned")
+        raise cuda_lib.LaunchRefused("dense_score: win_trans and tables must "
+                                     "be 16-byte aligned")
+    if dev.type != "cuda":
+        raise cuda_lib.LaunchRefused(f"dense_score: unsupported device {dev}")
     out = torch.empty(R, Jm, N_SLOTS, dtype=f32, device=dev)
     fn = cuda_lib.load("dense_score").pbccs_dense_score
     if fn.argtypes is None:
@@ -388,7 +391,7 @@ def dense_score(alpha, beta, offsets, apre, bsuf, reads, rlens, win_tpl,
                  win_trans.data_ptr(), tables.data_ptr(), live.data_ptr(),
                  out.data_ptr(), R, nc, Imax, Jm, NB, W, _HIT, _MISS, stream)
     cuda_lib.check(err, "dense_score")
-    dense_score.launches += 1
+    cuda_lib.count_launch(dense_score)
     return out
 
 

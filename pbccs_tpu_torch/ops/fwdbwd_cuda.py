@@ -298,7 +298,8 @@ def arrow_fill(reads, rlens, tpls, trans, tlens, offsets, width: int,
     on the same offsets.  Returns ((vals (R, nc, W), log-scales (R, nc)) or
     None for alpha, the same for beta).  CPU tensors run arrow_fill_plain;
     CUDA tensors launch csrc/arrow_fill.cu once on the current stream, both
-    directions in that one launch (no fallback; W must be in K1_WIDTHS)."""
+    directions in that one launch (no fallback; W must be in K1_WIDTHS;
+    arguments it cannot launch on raise cuda_lib.LaunchRefused)."""
     args = {"reads": (reads, torch.int8, 2), "rlens": (rlens, torch.int32, 1),
             "tpls": (tpls, torch.int8, 2), "trans": (trans, torch.float32, 3),
             "tlens": (tlens, torch.int32, 1),
@@ -306,33 +307,35 @@ def arrow_fill(reads, rlens, tpls, trans, tlens, offsets, width: int,
     dev = offsets.device
     for name, (x, _, _) in args.items():
         if x.device != dev:
-            raise ValueError(f"arrow_fill: {name} is on {x.device}, "
-                             f"offsets on {dev}")
+            raise cuda_lib.LaunchRefused(f"arrow_fill: {name} is on "
+                                         f"{x.device}, offsets on {dev}")
     if dev.type == "cpu":
         return arrow_fill_plain(reads, rlens, tpls, trans, tlens, offsets,
                                 width, pr_miscall, alpha, beta)
-    if dev.type != "cuda":
-        raise ValueError(f"arrow_fill: unsupported device {dev}")
     for name, (x, dtype, ndim) in args.items():
         cuda_lib.check_tensor("arrow_fill", name, x, dtype, ndim)
     R, Imax = reads.shape
     Jmax = tpls.shape[1]
     nc = Jmax + 1
     if width not in K1_WIDTHS:
-        raise ValueError(f"arrow_fill: band width {width} is not one of "
-                         f"{K1_WIDTHS}")
+        raise cuda_lib.LaunchRefused(f"arrow_fill: band width {width} is "
+                                     f"not one of {K1_WIDTHS}")
     if Imax < 1 or Jmax < 1 or tuple(offsets.shape) != (R, nc) \
             or tuple(trans.shape) != (R, Jmax, 4) \
             or tuple(rlens.shape) != (R,) or tuple(tlens.shape) != (R,) \
             or tpls.shape[0] != R:
-        raise ValueError("arrow_fill: shapes do not match: reads "
-                         f"{tuple(reads.shape)}, tpls {tuple(tpls.shape)}, "
-                         f"trans {tuple(trans.shape)}, offsets "
-                         f"{tuple(offsets.shape)}")
+        raise cuda_lib.LaunchRefused(
+            f"arrow_fill: shapes do not match: reads {tuple(reads.shape)}, "
+            f"tpls {tuple(tpls.shape)}, trans {tuple(trans.shape)}, "
+            f"offsets {tuple(offsets.shape)}")
     if trans.data_ptr() % 16:
-        raise ValueError("arrow_fill: trans must be 16-byte aligned")
+        raise cuda_lib.LaunchRefused("arrow_fill: trans must be 16-byte "
+                                     "aligned")
     if not (alpha or beta):
-        raise ValueError("arrow_fill: neither alpha nor beta asked for")
+        raise cuda_lib.LaunchRefused("arrow_fill: neither alpha nor beta "
+                                     "asked for")
+    if dev.type != "cuda":
+        raise cuda_lib.LaunchRefused(f"arrow_fill: unsupported device {dev}")
     outs = [(torch.empty(R, nc, width, device=dev),
              torch.empty(R, nc, device=dev)) if want else None
             for want in (alpha, beta)]
@@ -349,7 +352,7 @@ def arrow_fill(reads, rlens, tpls, trans, tlens, offsets, width: int,
                  trans.data_ptr(), tlens.data_ptr(), offsets.data_ptr(),
                  *ptrs, R, Imax, Jmax, width, hit, miss, stream)
     cuda_lib.check(err, "arrow_fill")
-    arrow_fill.launches += 1
+    cuda_lib.count_launch(arrow_fill)
     return tuple(outs)
 
 

@@ -5,8 +5,10 @@ edge programs (ops.dense_score_cuda) call: the alpha scale prefix / beta
 scale suffix and the generic one-column ExtendAlpha step `_ext_col`
 (reference ConsensusCore SimpleRecursor.cpp:373-487); and the dense
 mutated windows of (read, mutation) pairs that are scored by a full
-refill (`make_window_patches`, `mutated_windows_per_pair`).  All
-functions take leading batch axes."""
+refill, from patches built in the window frame (`make_window_patches`,
+the device loop's refills) or in the template frame (`make_patches`,
+the serial scorer's edge pairs), through `mutated_windows_per_pair`.
+All functions take leading batch axes."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from pbccs_tpu_torch.models.arrow.params import (
     TRANS_DARK,
     TRANS_MATCH,
     TRANS_STICK,
+    transition_lookup,
 )
 from pbccs_tpu_torch.ops.fwdbwd import (_affine_scan_circ, circ_roll,
                                         circ_rows, ftz)
@@ -111,6 +114,48 @@ class MutationPatch(NamedTuple):
 
 
 _SUB, _INS, _DEL = 0, 1, 2
+
+
+def make_patches(tpl, trans, table, tpl_len: int, pos, mtype,
+                 new_base) -> MutationPatch:
+    """The virtual-mutation patches of M mutations on one oriented full
+    template (port of make_patches_fast; reference ApplyVirtualMutation,
+    TemplateParameterPair.cpp:70-140).  tpl (Lm,) int padded template,
+    trans (Lm, 4) its transition track, table (8, 4), tpl_len its length
+    L, pos / mtype / new_base (M,) oriented mutations.  Neighbour lookups
+    clip to the padded template, as the reference's row-selects do."""
+    Lm = tpl.shape[0]
+    pos = pos.long()
+    clip = lambda q: q.clamp(0, Lm - 1)  # noqa: E731
+    t64 = tpl.long()
+    p = clip(pos)
+    prev_b, cur_b, next_b = t64[clip(p - 1)], t64[p], t64[clip(p + 1)]
+    trans_p1 = trans.float()[clip(p + 1)]
+    nb = new_base.long()
+
+    def T(a, b):
+        return transition_lookup(a, b, table)
+
+    def gate(cond, v):
+        return torch.where(cond[:, None], v, 0.0)
+
+    L = int(tpl_len)
+    ctx_prev_nb = T(prev_b, nb)
+    sub_t = torch.stack([gate(pos > 0, ctx_prev_nb),
+                         gate(pos + 1 < L, T(nb, next_b))], 1)
+    del_t = torch.stack([gate((pos > 0) & (pos < L - 1), T(prev_b, next_b)),
+                         gate(pos < L - 1, trans_p1)], 1)
+    ins_t = torch.stack([gate(pos > 0, ctx_prev_nb),
+                         gate(pos < L, T(nb, cur_b))], 1)
+    is_sub = (mtype == _SUB)[:, None]
+    is_ins = (mtype == _INS)[:, None]
+    bases = torch.where(is_sub | is_ins, torch.stack([prev_b, nb], 1),
+                        torch.stack([prev_b, next_b], 1))
+    transp = torch.where(is_sub[..., None], sub_t,
+                         torch.where(is_ins[..., None], ins_t, del_t))
+    shift = torch.where(mtype == _SUB, 0, torch.where(mtype == _INS, -1, 1))
+    return MutationPatch(bases.to(torch.int32), transp,
+                         shift.to(torch.int32))
 
 
 def make_window_patches(wt_e, pt_e, p, mtype, new_base) -> MutationPatch:

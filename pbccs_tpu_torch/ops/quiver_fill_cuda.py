@@ -219,7 +219,7 @@ def quiver_fill(tables, rlens, wins, wlens, row_read, row_win, offsets,
     written), log-scales (R, Jmax + 1) and final_cell's (R,) cells, both
     bitwise the same in the two modes.  CPU tensors run quiver_fill_plain;
     CUDA tensors launch csrc/quiver_fill.cu on the current stream (no
-    fallback)."""
+    fallback); arguments it cannot launch on raise cuda_lib.LaunchRefused."""
     args = {"tables": (tables, torch.float32, 3),
             "rlens": (rlens, torch.int32, 1), "wins": (wins, torch.int8, 2),
             "wlens": (wlens, torch.int32, 1),
@@ -229,32 +229,36 @@ def quiver_fill(tables, rlens, wins, wlens, row_read, row_win, offsets,
     dev = offsets.device
     for name, (x, dtype, ndim) in args.items():
         if x.device != dev:
-            raise ValueError(f"quiver_fill: {name} is on {x.device}, "
-                             f"offsets on {dev}")
+            raise cuda_lib.LaunchRefused(f"quiver_fill: {name} is on "
+                                         f"{x.device}, offsets on {dev}")
     if dev.type == "cpu":
         return quiver_fill_plain(tables, rlens, wins, wlens, row_read,
                                  row_win, offsets, width, merge, backward,
                                  vals)
-    if dev.type != "cuda":
-        raise ValueError(f"quiver_fill: unsupported device {dev}")
     for name, (x, dtype, ndim) in args.items():
         cuda_lib.check_tensor("quiver_fill", name, x, dtype, ndim)
     R, nc = offsets.shape
     M, Jmax = wins.shape
     n, P, ncols = tables.shape
     if width % 32 or not 32 <= width <= 32 * MAX_SLOTS:
-        raise ValueError(f"quiver_fill: band width {width} is not a "
-                         f"multiple of 32 in [32, {32 * MAX_SLOTS}]")
+        raise cuda_lib.LaunchRefused(
+            f"quiver_fill: band width {width} is not a multiple of 32 in "
+            f"[32, {32 * MAX_SLOTS}]")
     if ncols != N_COLS or P < 2 or tables.data_ptr() % 16:
-        raise ValueError(f"quiver_fill: tables must be 16-byte aligned "
-                         f"(n, >= 2, {N_COLS}), got {tuple(tables.shape)}")
+        raise cuda_lib.LaunchRefused(
+            f"quiver_fill: tables must be 16-byte aligned (n, >= 2, "
+            f"{N_COLS}), got {tuple(tables.shape)}")
     if Jmax < 1 or nc != Jmax + 1:
-        raise ValueError(f"quiver_fill: offsets have {nc} columns for "
-                         f"{Jmax}-column windows")
+        raise cuda_lib.LaunchRefused(f"quiver_fill: offsets have {nc} "
+                                     f"columns for {Jmax}-column windows")
     if rlens.shape[0] != n or wlens.shape[0] != M \
             or row_read.shape[0] != R or row_win.shape[0] != R:
-        raise ValueError("quiver_fill: index or length tensors do not "
-                         "match the tables, windows or offsets")
+        raise cuda_lib.LaunchRefused(
+            "quiver_fill: index or length tensors do not match the tables, "
+            "windows or offsets")
+    if dev.type != "cuda":
+        raise cuda_lib.LaunchRefused(f"quiver_fill: unsupported device "
+                                     f"{dev}")
     out = torch.empty(R, nc, width, device=dev) if vals else None
     ls = (torch.empty if vals else torch.zeros)(R, nc, device=dev)
     fin = torch.empty(R, device=dev)
@@ -270,7 +274,7 @@ def quiver_fill(tables, rlens, wins, wlens, row_read, row_win, offsets,
                  ls.data_ptr(), fin.data_ptr(), R, Jmax, width, int(merge),
                  int(backward), stream)
     cuda_lib.check(err, "quiver_fill")
-    quiver_fill.launches += 1
+    cuda_lib.count_launch(quiver_fill)
     return out, ls, fin
 
 

@@ -5,13 +5,18 @@ Port of pbccs_tpu.pipeline (reference include/pacbio/ccs/Consensus.h:
 on the CPU.  With the Arrow model (the default) every surviving ZMW of
 the batch then polishes in one lockstep BatchPolisher on the device,
 with the 2x band retry for ZMWs whose reads failed the alpha/beta mating
-test; with the Quiver model (ConsensusSettings.model = "quiver") each
-ZMW polishes on its own through QuiverMultiReadScorer and the generic
-refine loop, with per-ZMW fault isolation.  Yield accounting keeps the
-reference's result categories (Consensus.h:155-208, ccs.cpp:233-262).
+test (polish_prepared_batch); a batch that fails is bisected down to its
+poison ZMW(s), which get a serial rescue and are otherwise quarantined
+(resilience.quarantine), while a device error is re-raised.  The serial
+per-ZMW polish (polish_prepared, process_chunks(batch_polish=False))
+runs ArrowMultiReadScorer; with the Quiver model
+(ConsensusSettings.model = "quiver") each ZMW polishes on its own
+through QuiverMultiReadScorer.  Both use the generic refine loop.  Yield
+accounting keeps the reference's result categories (Consensus.h:155-208,
+ccs.cpp:233-262).
 
-Not ported: quarantine bisection, the watchdog, the memory governor and
-the serial per-ZMW Arrow polish (polish_prepared raises for it)."""
+Not ported: the watchdog, the transient-error retry, the memory governor
+and its capacity splits, and the fault-injection sites."""
 
 from __future__ import annotations
 
@@ -24,14 +29,15 @@ from typing import Sequence
 
 import numpy as np
 
-from pbccs_tpu_torch.device import resolve_device
+from pbccs_tpu_torch.device import is_device_error, resolve_device
 from pbccs_tpu_torch.models.arrow.params import decode_bases, encode_bases
 from pbccs_tpu_torch.models.arrow.refine import (RefineOptions,
                                                  consensus_qvs,
                                                  predicted_accuracy,
                                                  refine_consensus)
 from pbccs_tpu_torch.models.arrow.scorer import (ADD_ALPHABETAMISMATCH,
-                                                 ADD_SUCCESS)
+                                                 ADD_SUCCESS,
+                                                 ArrowMultiReadScorer)
 from pbccs_tpu_torch.poa.sparse import PoaAlignmentSummary, SparsePoa
 
 _log = logging.getLogger(__name__)
@@ -70,6 +76,10 @@ class ConsensusSettings:
     # refine/QV implementation, Consensus.hpp:64-79).  Subreads carry no
     # QV tracks here, so Quiver polishes with flat default tracks.
     model: str = "arrow"
+    # quarantined poison ZMWs (batch AND serial polish failed) emit a
+    # draft-only consensus (capped QVs, `df` tag) instead of dropping as
+    # Failure.OTHER (resilience.quarantine; off = reference parity)
+    degrade_quarantined: bool = False
 
 
 @dataclasses.dataclass
@@ -130,6 +140,8 @@ class ConsensusResult:
     mutations_applied: int
     snr: np.ndarray
     elapsed_ms: float
+    # the unpolished POA draft of a quarantined ZMW (QVs capped)
+    draft_only: bool = False
 
     @property
     def qualities(self) -> str:
@@ -391,20 +403,39 @@ def polish_prepared_quiver(prep: PreparedZmw, settings: ConsensusSettings,
 
 def polish_prepared(prep: PreparedZmw, settings: ConsensusSettings, *,
                     device=None) -> tuple[Failure, ConsensusResult | None]:
-    """The serial polish half of the per-ZMW pipeline.  Only the Quiver
-    model has a serial polish in the port; Arrow ZMWs polish in
-    lockstep batches (process_chunks)."""
+    """The serial polish half of the per-ZMW pipeline, given an already
+    prepared ZMW: ArrowMultiReadScorer (which owns its 2x band retry) ->
+    gates -> refine -> QVs -> finish, or the Quiver polish."""
+    dev = resolve_device(device)
     if settings.model == "quiver":
-        return polish_prepared_quiver(prep, settings,
-                                      resolve_device(device))
-    raise NotImplementedError(
-        "the serial per-ZMW Arrow polish is not ported; process_chunks "
-        "polishes Arrow ZMWs in lockstep batches")
+        return polish_prepared_quiver(prep, settings, dev)
+    t0 = time.monotonic()
+    scorer = ArrowMultiReadScorer(
+        prep.css, prep.chunk.snr, [m.seq for m in prep.mapped],
+        [m.strand for m in prep.mapped], [m.tpl_start for m in prep.mapped],
+        [m.tpl_end for m in prep.mapped], min_zscore=settings.min_zscore,
+        device=dev)
+
+    failure, status_counts, n_passes = _read_gates(prep, scorer.statuses,
+                                                   settings)
+    if failure is not None:
+        return failure, None
+
+    global_z = scorer.global_zscore()
+    refine = refine_consensus(scorer, settings.refine)
+    if not refine.converged:
+        return Failure.NON_CONVERGENT, None
+    qvs = scorer.consensus_qvs()
+    elapsed_ms = prep.prep_ms + (time.monotonic() - t0) * 1e3
+    return _finish_zmw(prep, settings, scorer.tpl, qvs, refine,
+                       scorer.zscores, global_z, status_counts, n_passes,
+                       elapsed_ms)
 
 
 def process_chunk(chunk: Chunk, settings: ConsensusSettings | None = None, *,
                   device=None) -> tuple[Failure, ConsensusResult | None]:
-    """The per-ZMW pipeline (reference Consensus, Consensus.h:396-553)."""
+    """The per-ZMW pipeline (reference Consensus, Consensus.h:396-553),
+    serial polish."""
     settings = settings or ConsensusSettings()
     failure, prep = prepare_chunk(chunk, settings)
     if failure is not None:
@@ -424,16 +455,18 @@ def _polish_tasks(preps: Sequence[PreparedZmw]) -> list:
 
 
 def _polish_batch_arrow(preps: Sequence[PreparedZmw],
-                        settings: ConsensusSettings, device
+                        settings: ConsensusSettings, device, *,
+                        buckets: tuple[int, int, int] | None = None
                         ) -> list[tuple[Failure, ConsensusResult | None]]:
-    """One lockstep BatchPolisher over `preps`, outcomes ALIGNED with
-    `preps`."""
+    """One lockstep BatchPolisher over `preps` (shapes at least
+    `buckets` = (Imax, Jmax, R)), outcomes ALIGNED with `preps`.  Raises
+    on any batch-path failure: polish_prepared_batch handles it."""
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
 
     t0 = time.monotonic()
     tasks = _polish_tasks(preps)
     polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
-                             device=device)
+                             buckets=buckets, device=device)
     gate_info = [_read_gates(p, polisher.statuses[z], settings)
                  for z, p in enumerate(preps)]
     # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
@@ -537,27 +570,105 @@ def prepare_batch(chunks: Sequence[Chunk],
     return tally, preps
 
 
+def _pinned_batch_shapes(preps: Sequence[PreparedZmw],
+                         buckets: tuple[int, int, int] | None
+                         ) -> tuple[int, int, int]:
+    """The (Imax, Jmax, R) the full batch polishes at: quarantine
+    sub-dispatches pin to these, so (the band width being a function of
+    the Jmax bucket) the surviving ZMWs come out byte-identical."""
+    from pbccs_tpu_torch.parallel.batch import effective_shapes
+
+    imax, jmax, r, _ = effective_shapes(
+        len(preps), max(len(p.mapped) for p in preps),
+        max((len(m.seq) for p in preps for m in p.mapped), default=8),
+        max(len(p.css) for p in preps), buckets=buckets)
+    return imax, jmax, r
+
+
+ON_ERROR = ("bisect", "serial")
+
+
+def polish_prepared_batch(preps: Sequence[PreparedZmw],
+                          settings: ConsensusSettings | None = None, *,
+                          device=None,
+                          buckets: tuple[int, int, int] | None = None,
+                          on_error: str = "bisect"
+                          ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """Polish prepared ZMWs in one lockstep BatchPolisher; outcomes
+    ALIGNED with `preps`.
+
+    A batch that raises is recovered by `on_error`: "bisect" (default)
+    bisects it in O(k log Z) re-dispatches pinned to the parent's
+    shapes to isolate the k poison ZMW(s); "serial" re-runs every ZMW
+    through the serial polish.  Either way an isolated ZMW whose serial
+    rescue fails too is quarantined (resilience.quarantine).  A device
+    error (device.is_device_error) is re-raised, never bisected.
+    Quiver ZMWs polish one by one with per-ZMW isolation."""
+    from pbccs_tpu_torch.resilience import quarantine
+
+    if on_error not in ON_ERROR:
+        raise ValueError(f"on_error must be one of {ON_ERROR}, "
+                         f"got {on_error!r}")
+    settings = settings or ConsensusSettings()
+    dev = resolve_device(device)
+    if not preps:
+        return []
+    if settings.model == "quiver":
+        return [_isolated(lambda p=p: polish_prepared(p, settings,
+                                                      device=dev),
+                          "polish.quiver", p.chunk.id) for p in preps]
+    pin = _pinned_batch_shapes(preps, buckets)
+    try:
+        return _polish_batch_arrow(preps, settings, dev, buckets=buckets)
+    except Exception as e:  # noqa: BLE001 -- classified below
+        if is_device_error(e):
+            raise
+        if on_error == "serial":
+            record_zmw_failure("polish.batch", e, zmw=f"batch[{len(preps)}]")
+            return [quarantine.serial_rescue(p, settings, e, device=dev)
+                    for p in preps]
+        return quarantine.isolate(
+            preps, lambda sub: _polish_batch_arrow(sub, settings, dev,
+                                                   buckets=pin),
+            settings, e, device=dev)
+
+
+def _isolated(fn, stage: str, zmw: str
+              ) -> tuple[Failure, ConsensusResult | None]:
+    """fn() with per-ZMW fault isolation: an exception is logged and
+    tallied as Other (reference Consensus.h:543-548), a device error
+    re-raised."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
+        if is_device_error(e):
+            raise
+        record_zmw_failure(stage, e, zmw=zmw)
+        return Failure.OTHER, None
+
+
 def process_chunks(chunks: Sequence[Chunk],
-                   settings: ConsensusSettings | None = None, *,
+                   settings: ConsensusSettings | None = None,
+                   batch_polish: bool = True, on_error: str = "bisect", *,
                    device=None) -> ResultTally:
     """Process a batch of ZMWs on `device` (default: the card; raises when
     there is none; `device="cpu"` runs the kernels' plain versions).
 
-    Arrow: host stages per ZMW, then one lockstep polish of every
-    survivor.  Quiver: each ZMW through the per-ZMW pipeline; an
-    exception is logged and tallied as Other and the batch continues
-    (reference Consensus.h:543-548)."""
+    With batch_polish (the default) Arrow ZMWs run the host stages per
+    ZMW, then one lockstep polish of every survivor
+    (polish_prepared_batch, with `on_error` its batch-failure recovery).
+    Without it, and with the Quiver model, each ZMW runs the per-ZMW
+    pipeline on its own; an exception is logged and tallied as Other and
+    the batch continues (reference Consensus.h:543-548).  A device error
+    is re-raised in every mode."""
     dev = resolve_device(device)
     settings = settings or ConsensusSettings()
-    if settings.model == "quiver":
+    if not batch_polish or settings.model == "quiver":
         tally = ResultTally()
         for chunk in chunks:
-            try:
-                failure, result = process_chunk(chunk, settings, device=dev)
-            except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
-                record_zmw_failure("zmw", e, zmw=chunk.id)
-                tally.tally(Failure.OTHER)
-                continue
+            failure, result = _isolated(
+                lambda c=chunk: process_chunk(c, settings, device=dev),
+                "zmw", chunk.id)
             tally.tally(failure)
             if result is not None:
                 tally.results.append(result)
@@ -565,7 +676,9 @@ def process_chunks(chunks: Sequence[Chunk],
     tally, preps = prepare_batch(chunks, settings)
     if not preps:
         return tally
-    for failure, result in _polish_batch_arrow(preps, settings, dev):
+    for failure, result in polish_prepared_batch(preps, settings,
+                                                 device=dev,
+                                                 on_error=on_error):
         tally.tally(failure)
         if result is not None:
             tally.results.append(result)

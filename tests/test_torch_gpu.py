@@ -291,51 +291,56 @@ def test_dense_score_kernel_matches_plain(cuda, W, guided):
 
 
 def test_wrappers_check_inputs(cuda):
+    """Every refusal before a launch is a LaunchRefused: a KernelError
+    (re-raised by the pipeline, never bisected) that is also a
+    ValueError and a TypeError."""
+    from pbccs_tpu_torch.ops.cuda_lib import LaunchRefused
+
     args = list(_k1_args(cuda, 64))
     for W in (48, 224, 288):           # W % 32 != 0, not built, W > 256
-        with pytest.raises(ValueError):
+        with pytest.raises(LaunchRefused):
             fc.arrow_fill(*args[:6], W)
     for i in (0, 3, 5):                               # one tensor on the CPU
         bad = list(args)
         bad[i] = args[i].cpu()
-        with pytest.raises(ValueError):
+        with pytest.raises(LaunchRefused):
             fc.arrow_fill(*bad)
     bad = list(args)
     bad[0] = args[0].int()
-    with pytest.raises(TypeError):
+    with pytest.raises(LaunchRefused):
         fc.arrow_fill(*bad)
     from pbccs_tpu_torch.ops.quiver_fill_cuda import quiver_fill
 
     args = list(_quiver_fill_args(cuda, "all", W=64))
-    with pytest.raises(ValueError):                   # W % 32 != 0
+    with pytest.raises(LaunchRefused):                   # W % 32 != 0
         quiver_fill(*args[:7], 48, True, False)
     bad = list(args)
     bad[0] = args[0].double()
-    with pytest.raises(TypeError):
+    with pytest.raises(LaunchRefused):
         quiver_fill(*bad, False)
     bad = list(args)
     bad[2] = args[2].long()
-    with pytest.raises(TypeError):
+    with pytest.raises(LaunchRefused):
         quiver_fill(*bad, False)
     for i in (0, 4, 6):                               # one tensor on the CPU
         bad = list(args)
         bad[i] = args[i].cpu()
-        with pytest.raises(ValueError):
+        with pytest.raises(LaunchRefused):
             quiver_fill(*bad, False)
     args = list(_k3_args(cuda, 64, False)[0])
     for W in (48, 224):                               # W not built
         wide = [torch.zeros(*a.shape[:2], W, device=cuda) for a in args[:2]]
-        with pytest.raises(ValueError):
+        with pytest.raises(LaunchRefused):
             ds.dense_score(*wide, *args[2:])
     for i, cast in ((5, torch.int32), (7, torch.int32), (10, torch.float64)):
         bad = list(args)
         bad[i] = args[i].to(cast)
-        with pytest.raises(TypeError):
+        with pytest.raises(LaunchRefused):
             ds.dense_score(*bad)
     for i in (0, 5, 11):                              # one tensor on the CPU
         bad = list(args)
         bad[i] = args[i].cpu()
-        with pytest.raises(ValueError):
+        with pytest.raises(LaunchRefused):
             ds.dense_score(*bad)
 
 
@@ -421,3 +426,35 @@ def test_process_chunks_builds_no_coefficient_plane(cuda, monkeypatch):
     assert fc.arrow_fill.launches > before[0]
     assert ds.dense_score.launches > before[1]
     assert out.total == 2 and out.results
+
+
+@pytest.mark.parametrize("W", [96, 192])
+def test_serial_scorer_card_matches_cpu(cuda, W):
+    """The serial ArrowMultiReadScorer of a 2 kb ZMW on the card against
+    the same scorer on the CPU: at the schedule's W = 96 and at W = 192,
+    the width its 2x band retry reaches (here set as an explicit band
+    width).  Gates equal; score_mutations over a spread of the
+    template's mutations (every 7th position and both ends, so interior
+    pairs on K3 and edge pairs refilled on K1) within the dense
+    tolerance, rtol 2e-5, atol 2e-3."""
+    from pbccs_tpu_torch.models.arrow.mutations import enumerate_unique
+    from pbccs_tpu_torch.models.arrow.scorer import ArrowMultiReadScorer
+
+    rng = np.random.default_rng(29)
+    tpl, reads, strands, snr = simulate_zmw(rng, 2000, 5)
+    L = len(tpl)
+    cfg = params.ArrowConfig(banding=params.BandingOptions(
+        band_width=None if W == 96 else W))
+    args = (tpl, snr, reads, strands, [0] * 5, [L] * 5)
+    cpu = ArrowMultiReadScorer(*args, config=cfg, min_zscore=-5.0,
+                               device="cpu")
+    fills, dense = fc.arrow_fill.launches, ds.dense_score.launches
+    gpu = ArrowMultiReadScorer(*args, config=cfg, min_zscore=-5.0)
+    assert gpu._W == cpu._W == W
+    np.testing.assert_array_equal(gpu.statuses, cpu.statuses)
+    muts = [m for m in enumerate_unique(tpl)
+            if m.start % 7 == 0 or m.start < 5 or m.start > L - 5]
+    got = gpu.score_mutations(muts)
+    assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
+    np.testing.assert_allclose(got, cpu.score_mutations(muts), rtol=2e-5,
+                               atol=2e-3)

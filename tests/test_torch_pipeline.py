@@ -192,8 +192,8 @@ def test_wrappers_reject_unsupported_devices():
 
 
 def test_port_imports_without_jax():
-    """pbccs_tpu_torch (every module, the Quiver path's named) and
-    chip_smoke.py import with jax and pbccs_tpu poisoned."""
+    """pbccs_tpu_torch (every module, the Quiver path's and the CLI's
+    named) and chip_smoke.py import with jax and pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -204,6 +204,12 @@ def test_port_imports_without_jax():
         "quiver = {'pbccs_tpu_torch.models.quiver.' + n for n in\n"
         "          ('params', 'features', 'recursor', 'fill', 'scorer')}\n"
         "assert quiver <= names, quiver - names\n"
+        "cli = {'pbccs_tpu_torch.' + n for n in\n"
+        "       ('cli', 'io.bam', 'io.fasta', 'io.pbi', 'io.report',\n"
+        "        'io.validate', 'runtime.logging', 'runtime.whitelist',\n"
+        "        'runtime.chemistry', 'runtime.workqueue',\n"
+        "        'utils.intervals', 'resilience.quarantine')}\n"
+        "assert cli <= names, cli - names\n"
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"

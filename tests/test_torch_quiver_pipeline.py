@@ -50,9 +50,20 @@ def test_process_chunks_quiver_matches_jax(seed, L, passes):
 
 
 def test_serial_arrow_polish_is_not_ported():
+    """The serial Arrow polish behind process_chunk (the test's name is
+    kept from when it pinned that polish's absence): the model defaults
+    to Arrow, and the port's serial scorer gives the JAX package's
+    consensus, QVs within 1."""
     rng = np.random.default_rng(6)
     _, reads, _, snr = simulate_zmw(rng, 60, 4)
-    chunk = tpipe.Chunk("a", [tpipe.Subread(f"a/{i}", r)
-                              for i, r in enumerate(reads)], snr)
-    with pytest.raises(NotImplementedError):
-        tpipe.process_chunk(chunk, device="cpu")
+    ids = [f"a/{i}" for i in range(len(reads))]
+    chunk = tpipe.Chunk("a", [tpipe.Subread(i, r)
+                              for i, r in zip(ids, reads)], snr)
+    jchunk = jpipe.Chunk("a", [jpipe.Subread(i, r)
+                               for i, r in zip(ids, reads)], snr)
+    failure, got = tpipe.process_chunk(chunk, device="cpu")
+    jfailure, want = jpipe.process_chunk(jchunk)
+    assert failure.value == jfailure.value == "Success"
+    assert got.sequence == want.sequence
+    assert np.abs(got.qvs.astype(int) - want.qvs.astype(int)).max() \
+        <= QV_ATOL
