@@ -76,7 +76,33 @@ script exits non-zero):
      K3 launched, yield and mean identity at least phase 4's (within
      CLI_IDENT_SLACK); wall time and peak device memory beside phase
      4's, and the wall of the same run on one worker thread (the same
-     BAM bytes), which the work queue's overlap is measured against.
+     BAM bytes), which the work queue's overlap is measured against;
+ 11. resilience: the CLI of phase 10 on the same subread BAM under the
+     resilience and observability tiers, launch counters zeroed and the
+     metrics registry windowed around each run, phase 10's records the
+     reference: (1) poison, `--faults polish.dispatch:error~<one ZMW>`:
+     the other 63 records byte-equal, the ZMW tallied Other (with
+     --degradeQuarantined one `df` record, QVs capped), one quarantined
+     ZMW; (2) transient, one retried dispatch, every record byte-equal;
+     (3) hang, --polishTimeout HANG_TIMEOUT_S with the first dispatch
+     delayed past it: one watchdog timeout, every record recovered by
+     bisection byte-equal, the abandoned worker joined before the
+     counters are read; (4) capacity, a real CUDA OOM on one worker
+     thread: the allocator capped between the reserved peaks of a
+     16-ZMW and a 32-ZMW pinned dispatch (limit printed), the first
+     batch splits and records a ceiling of 16, the second is pre-split
+     at admission, nothing quarantined, every record byte-equal; the
+     memory allocated when the first half is dispatched printed beside
+     the failed attempt's peak; (5) checkpoint/resume, a subprocess run
+     at --chunkSize 16 with --checkpoint killed by a workqueue.task
+     fault on its third task, then --resume in process: BAM, .pbi and
+     report byte-identical to an uninterrupted run at --chunkSize 16,
+     chunks restored, fewer K1 launches than the uninterrupted run, the
+     journal gone; (6) trace and profile, one run with --trace-out and
+     --profile-dir: the spans filter, draft, polish, polish.setup,
+     polish.refine, polish.qv and emit, device wait on every polish and
+     polish.refine span, the torch.profiler trace naming K1's and K3's
+     kernels, the run's wall beside phase 10's and its stage seconds.
 Then the card's name and power limit, the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1149,6 +1175,293 @@ def phase_cli(chunks, truths, main_path) -> dict:
     return out
 
 
+#: the watchdog deadline of phase 11's hang check and the delay injected
+#: into the first dispatch: a 32-ZMW dispatch takes ~1-2 s on the card
+HANG_TIMEOUT_S = 10.0
+HANG_DELAY_S = 15.0
+#: the spans phase 11 requires in a --trace-out capture
+TRACE_SPANS = ("filter", "draft", "polish", "polish.setup", "polish.refine",
+               "polish.qv", "emit")
+
+
+def _join_watchdog_threads() -> int:
+    """Join every abandoned pbccs-watchdog-* worker (its late polish
+    launches kernels and holds memory until it ends); returns how many."""
+    import threading
+
+    workers = [t for t in threading.enumerate()
+               if t.name.startswith("pbccs-watchdog-")]
+    for t in workers:
+        t.join(300)
+        if t.is_alive():
+            raise AssertionError(f"{t.name} did not finish")
+    return len(workers)
+
+
+def phase_resilience(cli_out) -> dict:
+    """The CLI's resilience and observability tiers on the card, each
+    held against phase 10's records (see the module docstring)."""
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.io.bam import BamReader, encode_record
+    from pbccs_tpu_torch.obs.metrics import default_registry
+    from pbccs_tpu_torch.resilience import quarantine, resources
+    from pbccs_tpu_torch.runtime import timing
+    from pbccs_tpu_torch.runtime.logging import Logger
+    from pbccs_tpu_torch.runtime.whitelist import Whitelist
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "cli_smoke")
+    in_bam = os.path.join(d, "subreads.bam")
+    reg = default_registry()
+
+    def records(path):
+        with BamReader(path) as r:
+            return {rec.tags["zm"]: (rec, encode_record(rec)) for rec in r}
+
+    ref = {k: v[1] for k, v in records(os.path.join(d, "ccs.bam")).items()}
+
+    def run(name, *extra, chunk=CLI_CHUNK, expect_rc=0):
+        out = os.path.join(d, f"p11_{name}.bam")
+        report = os.path.join(d, f"p11_{name}.csv")
+        quarantine.reset_event_counts()
+        torch.cuda.synchronize()
+        _zero_launch_counts()
+        scope = reg.scope()
+        t0 = time.monotonic()
+        rc = cli.run([out, in_bam, "--chunkSize", str(chunk), "--reportFile",
+                      report, "--logLevel", "WARN", *extra])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        joined = _join_watchdog_threads()
+        if rc != expect_rc:
+            raise AssertionError(f"{name}: exit code {rc}")
+        return {"out": out, "report": open(report).read(), "wall_s": wall,
+                "launches": _launch_counts(), "deltas": scope.delta(),
+                "stages": timing.stage_seconds(scope),
+                "events": _quarantine_events(), "records": records(out),
+                "joined_watchdog_threads": joined}
+
+    def counter(r, name, **labels):
+        key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
+        return float(r["deltas"].get(key, 0.0))
+
+    def differing(r, skip=()):
+        """Holes whose record is not byte-equal to phase 10's."""
+        got = {k: v[1] for k, v in r["records"].items() if k not in skip}
+        want = {k: v for k, v in ref.items() if k not in skip}
+        return sorted(k for k in set(got) | set(want)
+                      if got.get(k) != want.get(k))
+
+    out = {"phase": "resilience", "card": card_line(), "zmws": len(ref)}
+    # (1) poison: one ZMW fails every dispatch and its serial rescue
+    hole = sorted(ref)[5]          # a ZMW phase 10 polished
+    zid = f"{CLI_MOVIE}/{hole}"
+    poison = run("poison", "--faults", f"polish.dispatch:error~{zid}")
+    degraded = run("degraded", "--faults", f"polish.dispatch:error~{zid}",
+                   "--degradeQuarantined")
+    df = degraded["records"].get(hole, (None,))[0]
+    out["poison"] = {
+        "wall_s": poison["wall_s"], "launches": poison["launches"],
+        "bisect_dispatches": counter(
+            poison, "ccs_quarantine_bisect_dispatches_total"),
+        "quarantined": counter(poison, "ccs_quarantined_zmws_total"),
+        "others_differing": differing(poison, skip=(hole,)),
+        "poison_absent": hole not in poison["records"],
+        "degraded_wall_s": degraded["wall_s"],
+        "degraded_launches": degraded["launches"],
+        "degraded": counter(degraded, "ccs_degraded_zmws_total"),
+        "degraded_df_record": df is not None and df.tags.get("df") == 1
+        and set(df.qual) == {chr(33 + quarantine.DRAFT_QV_CAP)},
+        "degraded_others_differing": differing(degraded, skip=(hole,))}
+    # (2) transient: one dispatch fails with a transient marker
+    transient = run("transient", "--faults",
+                    "polish.dispatch:error=transient*1")
+    out["transient"] = {
+        "wall_s": transient["wall_s"], "launches": transient["launches"],
+        "retries": counter(transient, "ccs_retries_total",
+                           site="polish.dispatch"),
+        "differing": differing(transient)}
+    # (3) hang: the first dispatch sleeps past the watchdog deadline
+    hang = run("hang", "--polishTimeout", str(HANG_TIMEOUT_S), "--faults",
+               f"polish.dispatch:delay={HANG_DELAY_S}*1")
+    out["hang"] = {
+        "timeout_s": HANG_TIMEOUT_S, "delay_s": HANG_DELAY_S,
+        "wall_s": hang["wall_s"], "launches": hang["launches"],
+        "watchdog_timeouts": counter(hang, "ccs_watchdog_timeouts_total",
+                                     site="polish.dispatch"),
+        "bisect_dispatches": counter(
+            hang, "ccs_quarantine_bisect_dispatches_total"),
+        "joined_watchdog_threads": hang["joined_watchdog_threads"],
+        "quarantine_events": hang["events"],
+        "differing": differing(hang)}
+    # (4) capacity: a real CUDA OOM under a capped allocator
+    args = cli.build_parser().parse_args(["x.bam", in_bam, "--chunkSize",
+                                          str(CLI_CHUNK)])
+    batches = [tp.prepare_batch(b)[1] for b in cli.gated_chunks(
+        [in_bam], Whitelist("all"), args, Logger.default(), tp.ResultTally())]
+    pins = [tp._pinned_batch_shapes(p, None) for p in batches]
+    settings = tp.ConsensusSettings()
+
+    def reserved_peak(preps, pin):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        tp._polish_batch_arrow(preps, settings, torch.device("cuda"),
+                               buckets=pin)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_reserved() - base
+
+    half = max(reserved_peak(p[lo:lo + CLI_CHUNK // 2], pin)
+               for p, pin in zip(batches, pins)
+               for lo in (0, CLI_CHUNK // 2))
+    full = min(reserved_peak(p, pin) for p, pin in zip(batches, pins))
+    del batches
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    limit = torch.cuda.memory_reserved() + (half + full) // 2
+    total = torch.cuda.get_device_properties(0).total_memory
+    split_seen = []
+    real_part = tp._polish_split_part
+
+    def first_part(preps, *a, **kw):
+        if not split_seen:
+            split_seen.append(torch.cuda.memory_allocated())
+        return real_part(preps, *a, **kw)
+
+    if full <= half:
+        raise AssertionError(f"a 32-ZMW dispatch reserves no more than a "
+                             f"16-ZMW one: {full} <= {half}")
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    tp._polish_split_part = first_part
+    torch.cuda.reset_peak_memory_stats()
+    allocated_before = torch.cuda.memory_allocated()
+    try:
+        cap = run("capacity", "--numThreads", "1")
+    finally:
+        tp._polish_split_part = real_part
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    ceiling = resources.default_governor().cap(
+        resources.shape_bucket(*pins[0]), device="cuda")
+    resources.default_governor().reset_device("cuda")
+    out["capacity"] = {
+        "pins": pins, "half_reserved_peak": half,
+        "full_reserved_peak": full, "limit_bytes": limit,
+        "fraction": limit / total, "wall_s": cap["wall_s"],
+        "launches": cap["launches"],
+        "max_memory_reserved": torch.cuda.max_memory_reserved(),
+        "allocated_before_run": allocated_before,
+        "allocated_at_first_half": split_seen[0] if split_seen else None,
+        "oom_failures": counter(cap, "ccs_zmw_failures_total",
+                                stage="polish.capacity",
+                                exc="OutOfMemoryError"),
+        "oom_splits": counter(cap, "ccs_resource_oom_splits_total"),
+        "presplit_batches": counter(cap,
+                                    "ccs_resource_presplit_batches_total"),
+        "ceiling": ceiling, "quarantine_events": cap["events"],
+        "differing": differing(cap)}
+    # (5) checkpoint/resume at --chunkSize 16
+    whole = run("whole16", chunk=16)
+    ckpt = os.path.join(d, "p11_resume.ckpt")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    killed = subprocess.run(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli",
+         os.path.join(d, "p11_resume.bam"), in_bam, "--chunkSize", "16",
+         "--reportFile", os.path.join(d, "p11_resume.csv"), "--checkpoint",
+         ckpt, "--numThreads", "1", "--faults", "workqueue.task:error@3",
+         "--logLevel", "ERROR"], cwd=os.path.dirname(os.path.abspath(
+             __file__)), capture_output=True, text=True, timeout=600)
+    journaled = sum(1 for line in open(ckpt)
+                    if json.loads(line)["type"] == "chunk") \
+        if os.path.exists(ckpt) else 0
+    resumed = run("resume", "--checkpoint", ckpt, "--resume", chunk=16)
+    out["checkpoint"] = {
+        "killed_exit_code": killed.returncode,
+        "killed_stderr_tail": killed.stderr.strip().splitlines()[-1:],
+        "journaled_chunks": journaled,
+        "whole_wall_s": whole["wall_s"], "whole_launches": whole["launches"],
+        "resume_wall_s": resumed["wall_s"],
+        "resume_launches": resumed["launches"],
+        "restored": counter(resumed, "ccs_checkpoint_records_total",
+                            kind="restored"),
+        "written": counter(resumed, "ccs_checkpoint_records_total",
+                           kind="written"),
+        "byte_identical": {ext: open(resumed["out"].replace(".bam", "")
+                                     + ext, "rb").read()
+                           == open(whole["out"].replace(".bam", "") + ext,
+                                   "rb").read()
+                           for ext in (".bam", ".bam.pbi", ".csv")},
+        "journal_removed": not os.path.exists(ckpt)}
+    # (6) trace and profile
+    trace_path = os.path.join(d, "p11_trace.json")
+    prof_dir = os.path.join(d, "p11_profile")
+    if os.path.isdir(prof_dir):
+        for f in os.listdir(prof_dir):
+            os.remove(os.path.join(prof_dir, f))
+    traced = run("trace", "--trace-out", trace_path, "--profile-dir",
+                 prof_dir)
+    events = json.load(open(trace_path))["traceEvents"]
+    names = {e["name"] for e in events}
+    wait = {}
+    for e in events:
+        wait.setdefault(e["name"], []).append(e["args"]["device_wait_ms"])
+    (prof_file,) = os.listdir(prof_dir)
+    kernels = {e["name"] for e in json.load(open(os.path.join(
+        prof_dir, prof_file)))["traceEvents"] if e.get("cat") == "kernel"}
+    out["trace"] = {
+        "wall_s": traced["wall_s"], "phase10_wall_s": cli_out["wall_s"],
+        "launches": traced["launches"], "spans": sorted(names),
+        "device_wait_ms": {k: [min(v), sum(v)] for k, v in wait.items()},
+        "profiled_kernels": sorted(
+            k for k in kernels
+            if "arrow_fill_kernel" in k or "dense_score_kernel" in k),
+        "stage_seconds": traced["stages"],
+        "differing": differing(traced)}
+    emit(out)
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"resilience: {what}")
+
+    p, tr, hg, c, ck, tc = (out[k] for k in ("poison", "transient", "hang",
+                                              "capacity", "checkpoint",
+                                              "trace"))
+    require(not p["others_differing"] and p["poison_absent"]
+            and "Failed -- Exception thrown,1," in poison["report"]
+            and p["quarantined"] == 1, "poison ZMW not quarantined alone")
+    require(p["degraded_df_record"] and p["degraded"] == 1
+            and not p["degraded_others_differing"], "draft-only degradation")
+    require(tr["retries"] == 1 and not tr["differing"], "transient retry")
+    require(hg["watchdog_timeouts"] == 1 and not hg["differing"]
+            and hg["joined_watchdog_threads"] >= 1
+            and not hg["quarantine_events"]["quarantined"], "hang recovery")
+    require(c["oom_failures"] >= 1 and c["oom_splits"] >= 1
+            and c["ceiling"] == CLI_CHUNK // 2 and c["presplit_batches"] >= 1
+            and not any(c["quarantine_events"].values())
+            and not c["differing"], "capacity split on a real CUDA OOM")
+    require(ck["killed_exit_code"] != 0 and ck["journaled_chunks"] >= 1
+            and all(ck["byte_identical"].values()) and ck["restored"] >= 1
+            and ck["resume_launches"]["arrow_fill"]
+            < ck["whole_launches"]["arrow_fill"]
+            and ck["journal_removed"], "checkpoint/resume")
+    require(set(TRACE_SPANS) <= set(tc["spans"])
+            and all(tc["device_wait_ms"][k][0] > 0
+                    for k in ("polish", "polish.refine"))
+            and any("arrow_fill_kernel" in k for k in tc["profiled_kernels"])
+            and any("dense_score_kernel" in k
+                    for k in tc["profiled_kernels"])
+            and not tc["differing"], "trace spans or profiler kernels")
+    for r in (poison, degraded, transient, hang, cap, whole, resumed,
+              traced):
+        require(r["launches"]["arrow_fill"] > 0
+                and r["launches"]["dense_score"] > 0, "K1 or K3 not launched")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1178,7 +1491,8 @@ def main() -> int:
     quiver = phase_quiver(chunks[:N_QUIVER], truths[:N_QUIVER], small)
     phase_fallbacks(rng)
     phase_serial(chunks[:N_SERIAL], truths[:N_SERIAL], main_tally)
-    phase_cli(chunks, truths, main_path)
+    cli_out = phase_cli(chunks, truths, main_path)
+    phase_resilience(cli_out)
 
     # K1's launch on the main path: alpha and beta together at the
     # schedule's W

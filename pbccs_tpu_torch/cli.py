@@ -9,18 +9,28 @@ bounded ordered work queue on the card, and writes a CCS BAM with its
 CLI-level filters (whitelist, chemistry, SNR, read score, pass count) and
 output tags mirror the reference `ccs` (reference src/main/ccs.cpp:
 284-519) and pbccs_tpu.cli's single-device WorkQueue form; every flag is
-one that pbccs_tpu's parser defines.  Left out: the subcommands (serve,
-router, fleet, warmup, tune, analyze, top, roofline) and the flags of
-tiers the port does not have (the device fleet, checkpoint/resume, the
-memory budget, fault injection and the watchdog, tracing, profiling, the
-perf ledger and tuned profiles) -- argparse rejects each of them.
+one that pbccs_tpu's parser defines, with the same meaning: fault
+injection (--faults, --faultSeed), the dispatch watchdog
+(--polishTimeout), the per-chunk checkpoint journal (--checkpoint,
+--resume), span tracing (--trace-out), a torch.profiler capture
+(--profile-dir) and --memBudget (checked, then ignored as in pbccs_tpu's
+single-device form).  Every run ends with the `run metrics:` table of
+its registry window.  Left out: the subcommands (serve, router, fleet,
+warmup, tune, analyze, top, roofline) and the flags of tiers the port
+does not have (the device fleet's --devices, --prepareWorkers and
+--schedPolicy, the perf ledger's --perfLedger and tuned profiles'
+--tuneProfile) -- argparse rejects each of them.
 
 `run(argv, device=...)` is the in-process entry: the polish runs on the
-card unless `device` names another (the tests pass device="cpu")."""
+card unless `device` names another (the tests pass device="cpu").  The
+fault injector and watchdog deadline a run arms are restored when it
+returns, so in-process runs do not leak them into each other."""
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import itertools
 import math
 import os
 import sys
@@ -37,7 +47,6 @@ from pbccs_tpu_torch.io.bam import (
     BamReader,
     BamRecord,
     BamWriter,
-    OutputWriteError,
     ReadGroupInfo,
     make_read_group_id,
 )
@@ -53,6 +62,9 @@ from pbccs_tpu_torch.pipeline import (
     Subread,
     process_chunks,
 )
+from pbccs_tpu_torch.resilience import resources
+from pbccs_tpu_torch.resilience.resources import OutputWriteError
+from pbccs_tpu_torch.runtime import timing
 from pbccs_tpu_torch.runtime.chemistry import verify_chemistry
 from pbccs_tpu_torch.runtime.logging import (Logger, LogLevel,
                                              install_signal_handlers)
@@ -92,6 +104,43 @@ def add_consensus_args(p: argparse.ArgumentParser) -> None:
                         "them as Other.")
 
 
+def add_resilience_args(p: argparse.ArgumentParser) -> None:
+    """The fault-handling flags (pbccs_tpu.cli.add_resilience_args)."""
+    p.add_argument("--faults", default=None, metavar="SPEC",
+                   help="Arm deterministic fault injection (chaos "
+                        "testing), e.g. 'polish.dispatch:error~m/3'. "
+                        "See pbccs_tpu_torch/resilience/faults.py for the "
+                        "grammar; PBCCS_FAULTS is the env equivalent.")
+    p.add_argument("--faultSeed", type=int, default=0,
+                   help="Seed for probabilistic fault specs. "
+                        "Default = %(default)s")
+    p.add_argument("--polishTimeout", type=float, default=None,
+                   metavar="SECONDS",
+                   help="Watchdog deadline per device dispatch: a hung "
+                        "polish becomes a structured timeout and the "
+                        "affected ZMWs quarantine instead of stalling "
+                        "the run (default: PBCCS_WATCHDOG_S, else off).")
+
+
+@contextlib.contextmanager
+def apply_resilience_args(args):
+    """Arm --faults and --polishTimeout for the enclosed run, then put
+    back the process's previous injector and deadline."""
+    from pbccs_tpu_torch.resilience import faults, watchdog
+
+    prev_injector = faults.get()
+    if args.faults is not None:
+        faults.configure(args.faults, seed=args.faultSeed)
+    if args.polishTimeout is not None:
+        prev_deadline = watchdog.configure(args.polishTimeout)
+    try:
+        yield
+    finally:
+        faults.install(prev_injector)
+        if args.polishTimeout is not None:
+            watchdog.configure(prev_deadline)
+
+
 def consensus_settings_from_args(args) -> ConsensusSettings:
     return ConsensusSettings(
         min_length=args.minLength,
@@ -120,14 +169,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--logFile", default=None, help="Log to a file vs stderr.")
     p.add_argument("--logLevel", default="INFO",
                    help="TRACE..FATAL. Default = %(default)s")
+    p.add_argument("--trace-out", dest="trace_out", default=None,
+                   metavar="FILE",
+                   help="Write a Chrome-trace/Perfetto JSON of per-ZMW "
+                        "spans (filter/draft/polish/emit, wall vs "
+                        "device-wait) to FILE.")
+    p.add_argument("--profile-dir", dest="profile_dir", default=None,
+                   metavar="DIR",
+                   help="Capture a torch.profiler trace of the run (CPU "
+                        "and CUDA activities) into DIR as Chrome-trace "
+                        "JSON.")
     p.add_argument("--reportFile", default="ccs_report.csv",
                    help="Where to write the yield report. Default = %(default)s")
+    p.add_argument("--checkpoint", default=None, metavar="FILE",
+                   help="Journal completed chunks to FILE (NDJSON) so a "
+                        "killed run can restart with --resume. Default: "
+                        "off (--resume implies OUTPUT.ckpt).")
+    p.add_argument("--resume", action="store_true",
+                   help="Restore completed chunks from the checkpoint "
+                        "journal and compute only the rest; the final "
+                        "tally and output are identical to an "
+                        "uninterrupted run.")
+    p.add_argument("--memBudget", default=None, metavar="SIZE",
+                   help="Host-memory budget for the batch backlog of "
+                        "pbccs_tpu's device-fleet scheduler, e.g. 8G or "
+                        "512M.  Checked here, then ignored: this "
+                        "single-device form is already bounded by "
+                        "--numThreads work items.")
     p.add_argument("--batchFallback", choices=("bisect", "serial"),
                    default="bisect",
                    help="Recovery when a lockstep polish batch fails: "
                         "bisect isolates the poison ZMW(s) in O(k log Z) "
                         "re-dispatches; serial re-runs the whole batch "
                         "per-ZMW. Default = %(default)s")
+    add_resilience_args(p)
     p.add_argument("--decodePolicy", choices=("strict", "lenient", "salvage"),
                    default="strict",
                    help="BAM corruption handling: strict aborts on the "
@@ -270,7 +345,11 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
     error, 1 on an output failure)."""
     argv = sys.argv[1:] if argv is None else argv
     args = build_parser().parse_args(argv)
+    with apply_resilience_args(args):
+        return _run(args, device)
 
+
+def _run(args, device) -> int:
     log = Logger.default(Logger(
         stream=open(args.logFile, "w") if args.logFile else sys.stderr,
         level=LogLevel.from_string(args.logLevel)))
@@ -281,6 +360,14 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
     except ValueError as e:
         print(f"option --zmws: invalid specification: {e}", file=sys.stderr)
         return 2
+    if args.memBudget is not None:
+        try:
+            budget = resources.parse_size(args.memBudget)
+            if budget < 1:
+                raise ValueError(f"must be >= 1 byte, got {budget}")
+        except ValueError as e:
+            print(f"option --memBudget: {e}", file=sys.stderr)
+            return 2
     settings = consensus_settings_from_args(args)
     files = flatten_fofn(args.files)
     for f in files:
@@ -289,21 +376,81 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
             return 2
     dev = resolve_device(device)
 
+    from pbccs_tpu_torch.obs import profiling
+    from pbccs_tpu_torch.obs import trace as obs_trace
+    from pbccs_tpu_torch.obs.metrics import default_registry
+
+    # a measurement window over this run (the summary table below reports
+    # its deltas) plus the opt-in captures (--trace-out, --profile-dir)
+    run_window = timing.window()
+    tracer = None
+    if args.trace_out:
+        tracer = obs_trace.Tracer()
+        if not obs_trace.install_tracer(tracer):
+            log.warn("--trace-out ignored: another span capture is "
+                     "already running in this process")
+            tracer = None
     t0 = time.monotonic()
     try:
-        tally = _run_pipeline(args, files, whitelist, settings, log, dev)
+        with profiling.profile_capture(args.profile_dir):
+            tally = _run_pipeline(args, files, whitelist, settings, log, dev)
     except OutputWriteError as e:
         # a full disk is an operational failure, not a bug: report what
-        # was lost and exit nonzero without a traceback
+        # was lost and how to resume, exit nonzero without a traceback.
+        # The checkpoint journal (if any) keeps every completed chunk.
         log.error(f"output failure: {e}")
-        print(f"ccs: {e}\nccs: free disk space and re-run", file=sys.stderr)
+        print(f"ccs: {e}\n"
+              "ccs: free disk space and re-run (add --resume to restore "
+              "completed chunks from the checkpoint journal)",
+              file=sys.stderr)
         log.flush()
         return 1
+    finally:
+        if tracer is not None:
+            obs_trace.clear_tracer(tracer)
+            tracer.write_json(args.trace_out)
+            log.info(f"trace spans written to {args.trace_out}")
     counts = ", ".join(f"{f.value}={c}" for f, c in tally.counts.items() if c)
     log.info(f"run summary: {tally.total} ZMWs in "
              f"{time.monotonic() - t0:.3f} s on {dev} [{counts}]")
+    log.info("run metrics:\n" + default_registry().summary_table(run_window))
     log.flush()
     return 0
+
+
+def _open_journal(args, files, settings, log):
+    """The checkpoint journal of this run and the chunks it restores:
+    (journal or None, {index: ResultTally}).  Only a contiguous prefix of
+    restored chunks is used: results splice ahead of recomputed ones, so
+    a dropped record mid-journal invalidates everything after it."""
+    ckpt_path = args.checkpoint or (args.output + ".ckpt"
+                                    if args.resume else None)
+    if not ckpt_path:
+        return None, {}
+    from pbccs_tpu_torch.resilience.checkpoint import (CheckpointJournal,
+                                                       run_fingerprint)
+
+    # every knob that changes chunk COMPOSITION must fingerprint:
+    # minReadScore filters reads and skipChemistryCheck drops ZMWs
+    # before batching (the rest ride in via settings/files)
+    fp = run_fingerprint(
+        files, args.chunkSize, settings,
+        extra={"zmws": args.zmws, "min_read_score": args.minReadScore,
+               "skip_chemistry_check": bool(args.skipChemistryCheck)})
+    journal = CheckpointJournal(ckpt_path, logger=log)
+    restored: dict[int, ResultTally] = {}
+    if args.resume:
+        restored = journal.load(fp)
+        k = 0
+        while k in restored:
+            k += 1
+        if len(restored) > k:
+            log.warn(f"resume: journal has a gap at chunk {k}; "
+                     f"recomputing {len(restored) - k} chunk(s) "
+                     "after it to preserve output order")
+        restored = {i: t for i, t in restored.items() if i < k}
+    journal.start(fp, resume=args.resume and bool(restored))
+    return journal, restored
 
 
 def _run_pipeline(args, files, whitelist, settings, log,
@@ -317,53 +464,100 @@ def _run_pipeline(args, files, whitelist, settings, log,
     # stream in issue order, so no kernel reads a tensor another thread
     # is still writing.
     n_threads = args.numThreads or max(2, min(8, os.cpu_count() or 1))
+    if args.memBudget is not None:
+        log.warn("--memBudget gates the device-fleet scheduler's prepare "
+                 "backlog; this single-device WorkQueue form is already "
+                 "bounded by --numThreads work items, so the flag is "
+                 "ignored here")
     tally = ResultTally()
     movies: dict[str, ReadGroupInfo] = {}
+    journal, restored = _open_journal(args, files, settings, log)
 
     def run_batch(idx, batch):
-        return idx, process_chunks(batch, settings,
-                                   on_error=args.batchFallback,
-                                   device=device)
+        # the memory governor keys its ceilings by the card of the run
+        with resources.device_scope(str(device)):
+            return idx, process_chunks(batch, settings,
+                                       on_error=args.batchFallback,
+                                       device=device)
 
     consumed = ResultTally()
     consumer_error: list[BaseException] = []
     # the queue's bound counts results not yet CONSUMED, so the consumer
     # runs beside the produce loop (a produce-then-consume loop would
     # deadlock once the pipeline fills)
-    with WorkQueue(n_threads) as wq:
-        def consume():
-            try:
-                for _, sub_tally in wq.results():
-                    consumed.merge(sub_tally)
-            except BaseException as e:  # noqa: BLE001 -- re-raised below
-                consumer_error.append(e)
+    try:
+        with WorkQueue(n_threads) as wq:
+            def consume():
+                # after a journal write fails the consumer keeps draining
+                # (discarding) results, so a producer waiting for a
+                # pipeline slot wakes, sees the error and stops
+                try:
+                    for idx, sub_tally in wq.results():
+                        if consumer_error:
+                            continue
+                        consumed.merge(sub_tally)
+                        if journal is None:
+                            continue
+                        try:
+                            journal.record_chunk(idx, sub_tally)
+                        except OutputWriteError as e:
+                            consumer_error.append(e)
+                except BaseException as e:  # noqa: BLE001 -- re-raised below
+                    consumer_error.append(e)
 
-        consumer = threading.Thread(target=consume, name="pbccs-consumer")
-        consumer.start()
-        try:
-            for idx, batch in enumerate(gated_chunks(files, whitelist, args,
-                                                     log, tally)):
-                for chunk in batch:
-                    movie = chunk.id.split("/")[0]
-                    movies.setdefault(movie, ReadGroupInfo(movie, "CCS"))
-                wq.produce(run_batch, idx, batch)
-        finally:
-            wq.finalize()
-            consumer.join()
+            consumer = threading.Thread(target=consume,
+                                        name="pbccs-consumer")
+            consumer.start()
+            try:
+                batches = iter(gated_chunks(files, whitelist, args, log,
+                                            tally))
+                for idx in itertools.count():
+                    if consumer_error:
+                        break
+                    with timing.stage("read"):
+                        batch = next(batches, None)
+                    if batch is None:
+                        break
+                    for chunk in batch:
+                        movie = chunk.id.split("/")[0]
+                        movies.setdefault(movie,
+                                          ReadGroupInfo(movie, "CCS"))
+                    if idx in restored:
+                        # journaled chunks are a prefix: they merge before
+                        # any computed chunk, so the output order is the
+                        # uninterrupted run's
+                        tally.merge(restored[idx])
+                        continue
+                    with timing.stage("queue"):
+                        wq.produce(run_batch, idx, batch)
+            finally:
+                wq.finalize()
+                consumer.join()
+    finally:
+        if journal is not None:
+            journal.close()
     if consumer_error:
         raise consumer_error[0]
     tally.merge(consumed)
     log.info(f"processed {tally.total} ZMWs: "
              f"{tally.counts[Failure.SUCCESS]} successes")
 
-    if any(args.output.endswith(e) for e in (".fa", ".fasta", ".fsa")):
-        from pbccs_tpu_torch.io.fasta import write_fasta
+    from pbccs_tpu_torch.obs import trace as obs_trace
 
-        write_fasta(args.output,
-                    ((f"{r.id}/ccs", r.sequence) for r in tally.results))
-    else:
-        _write_bam(args.output, tally, list(movies.values()))
+    with obs_trace.span("emit", results=len(tally.results)), \
+            timing.stage("write"):
+        if any(args.output.endswith(e) for e in (".fa", ".fasta", ".fsa")):
+            from pbccs_tpu_torch.io.fasta import write_fasta
+
+            write_fasta(args.output,
+                        ((f"{r.id}/ccs", r.sequence) for r in tally.results))
+        else:
+            _write_bam(args.output, tally, list(movies.values()))
     write_report_file(args.reportFile, tally)
+    if journal is not None:
+        # only a run whose outputs landed needs no resume point: a
+        # disk-full failure above keeps the journal for --resume
+        journal.remove()
     return tally
 
 

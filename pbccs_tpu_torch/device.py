@@ -32,7 +32,10 @@ def is_device_error(exc: BaseException | None) -> bool:
     wrapper's refusal of its arguments (cuda_lib.LaunchRefused, a
     KernelError) or a CUDA error from torch (illegal address, launch
     failure, out of memory).
-    The pipeline re-raises these instead of isolating a poison ZMW."""
+    The pipeline re-raises these instead of isolating a poison ZMW, after
+    asking resilience.resources.is_capacity_error first: out of memory
+    splits the batch there, for every other caller it stays a device
+    error."""
     from pbccs_tpu_torch.ops.cuda_lib import KernelError
 
     kinds = (KernelError, torch.cuda.OutOfMemoryError,

@@ -1,10 +1,9 @@
 """BAM IO: BGZF (de)compression + unaligned PacBio BAM records, pure host.
 
-Copy of pbccs_tpu.io.bam for the port's CLI, with the decode rejections
-counted in each reader's DecodeStats only (no metric registry, no
-fault-injection site) and the disk-full-safe output of
-pbccs_tpu.resilience.resources (OutputWriteError, atomic_output) kept
-here.
+Copy of pbccs_tpu.io.bam for the port's CLI: the same registry
+counters, the same ``output.write`` fault site, and the disk-full-safe
+output of resilience.resources (OutputWriteError, atomic_output,
+re-exported here).
 
 The reference delegates BAM IO to pbbam/htslib (CMakeLists.txt:54-66,
 src/main/ccs.cpp:52-54); this module provides the same capabilities
@@ -25,29 +24,35 @@ Decode policies (htslib-style record-level salvage, input hardening):
     treated a torn final block as EOF.
   * ``lenient`` -- a bad RECORD (unknown tag type, seq/qual overrun,
     non-ACGT base, malformed `sn` tag, lying length field) is skipped and
-    counted in ``DecodeStats.invalid_records[reason]``; a corrupt
+    counted under ``ccs_input_invalid_records_total{reason}``; a corrupt
     BGZF BLOCK or a torn final block ends the stream early with the lost
     byte count recorded (``DecodeStats.bytes_lost``) instead of raising.
   * ``salvage`` -- lenient, plus resynchronization: after a corrupt BGZF
     block the reader scans the compressed stream for the next valid BGZF
-    header magic (``DecodeStats.salvaged_blocks``), and after a
+    header magic (``ccs_input_salvaged_blocks_total``), and after a
     record-framing loss it scans the decompressed stream for the next
     plausible record header.  One flipped bit costs at most the ~64 KiB
     block it lives in, not the rest of the SMRT cell.
 
-Every skip/resync/truncation is counted in the reader's ``DecodeStats``
-so callers (the CLI) can report exact rejection accounting.
+Every skip/resync/truncation is counted in the metrics registry AND in the
+reader's ``DecodeStats`` so callers (the CLI) can report exact rejection
+accounting.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import os
 import struct
 import zlib
 from typing import BinaryIO, Iterator
+
+from pbccs_tpu_torch.obs.metrics import default_registry
+from pbccs_tpu_torch.resilience.resources import (  # noqa: F401
+    OutputWriteError,
+    atomic_output,
+)
 
 _BGZF_HEADER = (b"\x1f\x8b\x08\x04\x00\x00\x00\x00\x00\xff\x06\x00\x42\x43\x02\x00")
 _BGZF_MAGIC = b"\x1f\x8b\x08\x04"  # fixed prefix of every BGZF member
@@ -67,69 +72,22 @@ _MAX_SEQ = 1 << 22          # 4 Mbase: far beyond any PacBio read
 _MAX_HEADER_TEXT = 1 << 28
 _MAX_RESYNC_SCAN = 1 << 26  # give up salvage after scanning 64 MiB
 
-
-# ------------------------------------------------- disk-full-safe output
-
-class OutputWriteError(RuntimeError):
-    """A filesystem write to an output sink failed (ENOSPC, quota, I/O
-    error): structured so callers can report WHAT was lost.
-    ``bytes_written`` counts the bytes the sink durably accepted before
-    the failure."""
-
-    def __init__(self, sink: str, path: str, bytes_written: int,
-                 cause: OSError):
-        self.sink = sink
-        self.path = path
-        self.bytes_written = int(bytes_written)
-        self.errno = cause.errno
-        super().__init__(
-            f"{sink} write to {path} failed after {bytes_written} byte(s): "
-            f"{cause.strerror or cause}")
+_reg = default_registry()
+_m_salvaged = _reg.counter(
+    "ccs_input_salvaged_blocks_total",
+    "BGZF resyncs: corrupt blocks skipped to the next valid header magic")
+_m_bytes_lost = _reg.counter(
+    "ccs_input_bytes_lost_total",
+    "Input bytes dropped by lenient/salvage decode (corruption+truncation)")
 
 
-@contextlib.contextmanager
-def atomic_output(path: str, sink: str, mode: str = "w") -> Iterator:
-    """Write `path` through a same-directory temp file, fsync, and
-    rename into place on clean exit -- a disk-full (or crash) mid-write
-    never publishes a torn file under the output path.  An OSError from
-    the write/flush/rename raises a structured OutputWriteError and the
-    temp file is removed."""
-    tmp = path + ".tmp"
-    written = 0
-    try:
-        fh = open(tmp, mode)
-    except OSError as e:
-        raise OutputWriteError(sink, path, 0, e) from e
-    try:
-        yield fh
-        fh.flush()
-        os.fsync(fh.fileno())
-        written = fh.tell()
-        fh.close()
-        os.replace(tmp, path)
-    except OSError as e:
-        try:
-            written = max(written, fh.tell())
-        except (OSError, ValueError):
-            pass
-        _close_and_remove(fh, tmp)
-        raise OutputWriteError(sink, path, written, e) from e
-    except BaseException:
-        _close_and_remove(fh, tmp)
-        raise
-
-
-def _close_and_remove(fh, tmp: str) -> None:
-    """Error-path teardown of a temp output: close (its flush can
-    re-raise the same ENOSPC) and remove it, best effort."""
-    try:
-        fh.close()
-    except OSError:
-        pass
-    try:
-        os.remove(tmp)
-    except OSError:
-        pass  # best-effort cleanup; the .tmp suffix marks it torn
+def count_invalid_record(reason: str) -> None:
+    """Increment the shared rejection counter (also used by
+    io.validate, so chunk and record rejections feed one metric
+    family)."""
+    _reg.counter("ccs_input_invalid_records_total",
+                 "Input records/blocks rejected by the decode policy",
+                 reason=reason).inc()
 
 
 class BamDecodeError(ValueError):
@@ -156,7 +114,7 @@ class TruncatedBamError(BamDecodeError):
 
 @dataclasses.dataclass
 class DecodeStats:
-    """Per-reader rejection accounting.
+    """Per-reader rejection accounting (mirrors the registry counters).
 
     ``bytes_lost`` is an APPROXIMATE loss indicator: depending on which
     layer detected the damage it counts compressed input bytes (BGZF
@@ -171,10 +129,12 @@ class DecodeStats:
 
     def count(self, reason: str) -> None:
         self.invalid_records[reason] = self.invalid_records.get(reason, 0) + 1
+        count_invalid_record(reason)
 
     def lose(self, nbytes: int) -> None:
         if nbytes > 0:
             self.bytes_lost += nbytes
+            _m_bytes_lost.inc(nbytes)
 
     @property
     def total_invalid(self) -> int:
@@ -370,6 +330,7 @@ class BgzfReader:
                 # into one silently-corrupt record.
                 self._resyncing = False
                 self.stats.salvaged_blocks += 1
+                _m_salvaged.inc()
                 self.lost_sync = True
                 self._staged = bytes(data)
                 return False
@@ -749,13 +710,15 @@ def _decode_record(body: bytes, policy: str) -> BamRecord:
 class BamWriter:
     """Unaligned BAM writer (no reference sequences).
 
-    Disk-full safe: records stream to
+    Disk-full safe (resilience.resources): records stream to
     ``path + ".tmp"`` and the finished file renames into place at
     close(), so a crash or ENOSPC mid-run never publishes a torn BAM
     under the output path.  A failed filesystem write (short write,
     ENOSPC, quota) raises a structured ``OutputWriteError`` with
     bytes-written accounting and removes the temp file; re-running the
-    emission after freeing space produces a byte-identical file.
+    emission (e.g. ``--resume`` after freeing space) produces a
+    byte-identical file.  The ``output.write`` fault site (keys:
+    ``bam``, path) lets chaos runs inject the failure deterministically.
     """
 
     def __init__(self, path: str, header: BamHeader):
@@ -773,10 +736,13 @@ class BamWriter:
             + struct.pack("<i", 0)))
 
     def _guard(self, fn):
-        """Run one write step; an OSError discards the temp file and
-        surfaces as a structured OutputWriteError carrying the compressed
-        bytes the sink durably accepted."""
+        """Run one write step under the fault site; an OSError discards
+        the temp file and surfaces as a structured OutputWriteError
+        carrying the compressed bytes the sink durably accepted."""
+        from pbccs_tpu_torch.resilience import faults
+
         try:
+            faults.maybe_fail("output.write", keys=["bam", self.path])
             return fn()
         except OSError as e:
             written = self._bgzf._cpos

@@ -39,7 +39,7 @@ def write_fasta(path: str, records, line_width: int = 70) -> None:
     # same-dir temp file, fsync, rename -- a crash or ENOSPC mid-write
     # never leaves a torn FASTA under the output path, and the failure
     # surfaces as a structured OutputWriteError
-    from pbccs_tpu_torch.io.bam import atomic_output
+    from pbccs_tpu_torch.resilience.resources import atomic_output
 
     with atomic_output(path, "fasta") as f:
         for name, seq in records:

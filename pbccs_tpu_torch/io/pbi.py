@@ -20,7 +20,8 @@ import struct
 
 import numpy as np
 
-from pbccs_tpu_torch.io.bam import BgzfReader, BgzfWriter, atomic_output
+from pbccs_tpu_torch.io.bam import BgzfReader, BgzfWriter
+from pbccs_tpu_torch.resilience.resources import atomic_output
 
 PBI_MAGIC = b"PBI\x01"
 PBI_VERSION = 0x00000301          # format 3.0.1
@@ -35,7 +36,7 @@ def read_group_numeric_id(rg_id: str) -> int:
 
 class PbiBuilder:
     """Accumulates one index row per BAM record; close() publishes the
-    .pbi ATOMICALLY (tmp+fsync+rename via io.bam.atomic_output), the
+    .pbi ATOMICALLY (tmp+fsync+rename via resources.atomic_output), the
     same durability contract as the companion BamWriter: an ENOSPC or
     crash mid-index never leaves a torn .pbi beside a valid BAM, and a
     filesystem failure surfaces as a structured OutputWriteError

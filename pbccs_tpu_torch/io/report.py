@@ -35,10 +35,13 @@ def write_results_report(out: TextIO, tally: ResultTally) -> None:
 
 def write_report_file(path: str, tally: ResultTally) -> None:
     """Disk-full-safe report write: the CSV lands through a same-dir
-    temp file + rename (io.bam.atomic_output), so an ENOSPC mid-write
-    surfaces as a structured OutputWriteError and never publishes a torn
-    report."""
-    from pbccs_tpu_torch.io.bam import atomic_output
+    temp file + rename (resilience.resources.atomic_output), so an
+    ENOSPC mid-write surfaces as a structured OutputWriteError and
+    never publishes a torn report.  The ``output.write`` fault site
+    (key ``report``) injects the failure deterministically."""
+    from pbccs_tpu_torch.resilience import faults
+    from pbccs_tpu_torch.resilience.resources import atomic_output
 
     with atomic_output(path, "report") as out:
+        faults.maybe_fail("output.write", keys=["report", path])
         write_results_report(out, tally)

@@ -4,8 +4,9 @@ A chunk that passes is safe to hand to pipeline.prepare_chunk -- no NaN
 SNRs reaching device math, no pathological read counts/lengths, no
 out-of-range accuracies skewing the read-score gate.
 
-Copy of pbccs_tpu.io.validate with the same bounds and reasons; the
-rejection is logged by the caller (no metric registry).  Bounds are
+Copy of pbccs_tpu.io.validate with the same bounds and reasons, counted
+under the ``ccs_input_invalid_records_total{reason}`` family the BAM
+decoder uses (the caller logs the rejection).  Bounds are
 deliberately generous (an order of magnitude past anything a real SMRT
 cell produces) so they only ever reject hostile or corrupt input, never
 legitimate workloads."""
@@ -15,6 +16,8 @@ from __future__ import annotations
 import math
 
 import numpy as np
+
+from pbccs_tpu_torch.io.bam import count_invalid_record as _count
 
 # generous physical bounds: real ZMWs top out around ~3k passes of ~50 kb
 MAX_READS_PER_CHUNK = 8192
@@ -32,12 +35,13 @@ class ChunkValidationError(ValueError):
 
 
 def _fail(reason: str, message: str) -> None:
+    _count(reason)
     raise ChunkValidationError(reason, message)
 
 
 def validate_chunk(chunk) -> None:
-    """Raise ChunkValidationError unless `chunk` satisfies the input
-    contract:
+    """Raise ChunkValidationError (and count the rejection) unless
+    `chunk` satisfies the input contract:
 
       * snr is 4 finite non-negative numbers (ACGT order);
       * 1..MAX_READS_PER_CHUNK reads, each 1..MAX_READ_LEN bases,

@@ -44,6 +44,7 @@ from pbccs_tpu_torch.models.arrow.scorer import (
     oriented_window,
 )
 from pbccs_tpu_torch.parallel import device_refine as dr
+from pbccs_tpu_torch.runtime.timing import device_fetch
 
 # windows shorter than this cannot have their boundary mutations scored
 # by the window-frame edge program (its two regimes would overlap)
@@ -70,12 +71,17 @@ def _imax_bucket(raw_imax: int) -> int:
 
 def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
                      max_tpl_len: int, *,
-                     buckets: tuple[int, int, int] | None = None
+                     buckets: tuple[int, ...] | None = None
                      ) -> tuple[int, int, int, int]:
     """The (Imax, Jmax, R, Z) a BatchPolisher with these inputs runs at.
-    `buckets` = (Imax, Jmax, R) lower bounds of a parent batch: a
-    sub-batch (the 2x band retry) adopts the parent's Jmax exactly when
-    its templates fit, so the two polish the same template bucket."""
+    `buckets` = (Imax, Jmax, R[, Z]) lower bounds of a parent batch: a
+    sub-batch (the 2x band retry, a quarantine sub-dispatch) adopts the
+    parent's Jmax exactly when its templates fit, so the two polish the
+    same template bucket.  A fourth element pins Z: the sub-batch is
+    padded with empty ZMWs to the parent's Z, so every tensor op runs at
+    the parent's shapes -- torch's CUDA reductions choose their summation
+    order by shape, and only equal shapes give a surviving ZMW the
+    parent's results bit for bit."""
     Z = n_zmws
     R = pad_to(max_reads, 4)
     Imax = _imax_bucket(max_read_len + 8)
@@ -87,6 +93,8 @@ def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
             Jmax = buckets[1]
         else:
             Jmax = max(Jmax, buckets[1])
+        if len(buckets) > 3:
+            Z = max(Z, buckets[3])
     return Imax, Jmax, R, Z
 
 
@@ -120,7 +128,7 @@ class PrebakedBatch:
 
 
 def premarshal(tasks: Sequence[ZmwTask], *,
-               buckets: tuple[int, int, int] | None = None
+               buckets: tuple[int, ...] | None = None
                ) -> PrebakedBatch:
     """Marshal a ZmwTask batch into its bucket-shaped numpy planes
     (effective_shapes geometry).  Pure host work."""
@@ -224,7 +232,7 @@ class BatchPolisher:
     def __init__(self, tasks: Sequence[ZmwTask],
                  config: ArrowConfig | None = None,
                  min_zscore: float = float("nan"), *,
-                 buckets: tuple[int, int, int] | None = None,
+                 buckets: tuple[int, ...] | None = None,
                  device=None):
         if not tasks:
             raise ValueError("empty batch")
@@ -257,7 +265,7 @@ class BatchPolisher:
         recomputed in f64 for reporting."""
         if self._stats_host is not None:
             return
-        stats = self._addread_stats_dev.cpu().numpy().astype(np.float64)
+        stats = device_fetch(self._addread_stats_dev, np.float64)
         ll_a_h, ll_b_h, mu_h, var_h, statuses_f = stats
         statuses = statuses_f.astype(np.int32)
         real = self._real_rows
@@ -399,7 +407,7 @@ class BatchPolisher:
                             self._strands_dev, self._tables_dev,
                             self._real_dev, self._skip_mask(skip),
                             min_fast_edge=MIN_FAST_EDGE_WLEN)
-        return qv.cpu().numpy()
+        return device_fetch(qv)
 
     def refine(self, opts: RefineOptions | None = None,
                skip=None) -> list[RefineResult]:
@@ -422,10 +430,10 @@ class BatchPolisher:
 
         self._state = st                 # the loop's final device state
         self._Jmax = st.tpl.shape[1]
-        h = torch.cat([
+        h = device_fetch(torch.cat([
             torch.stack([st.tlens, st.converged.to(torch.int32),
                          st.iterations, st.n_tested, st.n_applied], 1),
-            st.tpl.to(torch.int32)], dim=1).cpu().numpy()
+            st.tpl.to(torch.int32)], dim=1))
         for z in range(self.n_zmws):
             self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
         self._qv_cache = (frozenset(skip or ()), qv)

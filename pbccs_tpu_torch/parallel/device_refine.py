@@ -24,7 +24,9 @@ short for the window-frame program are scored by full refills of the
 mutated window (K1), and a template that outgrows its bucket re-buckets
 (batch._jmax_bucket) and the loop carries on at the larger Jmax.  The
 JAX loop's straggler early exit (a TPU compile-menu device) is not
-ported: per-ZMW results do not depend on it."""
+ported: per-ZMW results do not depend on it.  The flags and sizes the
+host reads each round are blocking device-to-host copies; they go
+through runtime.timing.device_fetch, which times them as device wait."""
 
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ from pbccs_tpu_torch.models.arrow.mutations import (_LN10, _SLOT_BASES,
                                                     INSERTION, QV_SATURATED,
                                                     SUBSTITUTION)
 from pbccs_tpu_torch.ops.fwdbwd import BandedMatrix
+from pbccs_tpu_torch.runtime.timing import device_fetch
 
 N_SLOTS = 9
 HISTORY = 48     # template-hash ring depth (cycle detection)
@@ -136,7 +139,7 @@ def greedy_well_separated_posmajor(scores: torch.Tensor,
     blocked = torch.zeros(Z, jmax, dtype=torch.bool, device=dev)
     alive = favorable.reshape(Z, jmax, ns).clone()
     ninf = torch.tensor(-float("inf"), device=dev)
-    while bool(alive.any()):
+    while bool(device_fetch(alive.any())):
         pos_sc = torch.where(alive, sc2, ninf).amax(dim=2)
         hit = alive & (sc2 == pos_sc[..., None])
         pos_sl = torch.where(hit, slot2, M).amin(dim=2)
@@ -315,7 +318,7 @@ def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, tables,
                                          0, k_w], p, mt, nb)
     bases, trans, new_len = mutated_windows_per_pair(wt_e, wtr_e, wl_e, p, mt,
                                                      patch)
-    jcut = int(new_len.max()) + 1          # columns past every window
+    jcut = int(device_fetch(new_len.max())) + 1  # columns past every window
     alpha = forward_batch(flat_reads[zr], flat_rlens[zr], bases[:, :jcut],
                           trans[:, :jcut], new_len, width)
     return forward_loglik_batch(alpha, flat_rlens[zr], new_len)
@@ -404,7 +407,7 @@ def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
                                          flat(st.tstarts), flat(st.tends),
                                          jmax).reshape(Z, R, M)
     with record_function(STAGES[4]):
-        if bool(fb.any()):
+        if bool(device_fetch(fb.any())):
             pairs = torch.nonzero(fb, as_tuple=True)
             mapped[pairs] = _refill_pairs(pairs, f_reads, f_rlens, f_wt,
                                           f_wtr, f_wl, tables, strands,
@@ -515,7 +518,7 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
     start, end, mtype, base = slot_grid(jmax, dev)
     H = st.history.shape[1]
     zidx = torch.arange(Z, device=dev)
-    while st.it < max_iterations and not bool(st.done.all()):
+    while st.it < max_iterations and not bool(device_fetch(st.done.all())):
         # 1. candidates
         valid = slot_candidates(st.tpl, st.tlens, st.allowed) \
             & ~st.done[:, None]
@@ -541,7 +544,8 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
         # exact even when it outgrows the bucket)
         taken = greedy_well_separated_posmajor(
             scores, favorable & ~done_now[:, None], separation, jmax)
-        jw = max(jmax, int(_splice_len(st.tlens, taken, mtype).max()))
+        jw = max(jmax, int(device_fetch(
+            _splice_len(st.tlens, taken, mtype).max())))
         if jw > jmax:
             w_start, _, w_mtype, w_base = slot_grid(jw, dev)
             nxt_tpl, nxt_tlen, _ = splice_templates(
@@ -572,8 +576,9 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
         # 5. re-bucket when an applied template outgrows Jmax, then apply
         new_len = torch.where(pushing, _splice_len(st.tlens, taken, mtype),
                               st.tlens)
-        if int(new_len.max()) + 2 > jmax:
-            jnew = batchmod._jmax_bucket(int(new_len.max()))
+        max_len = int(device_fetch(new_len.max()))
+        if max_len + 2 > jmax:
+            jnew = batchmod._jmax_bucket(max_len)
             st.tpl = _pad_positions(st.tpl, jmax, jnew, 4)
             st.allowed = _pad_positions(st.allowed, jmax, jnew, True)
             taken = _pad_positions(taken, jmax, jnew, False)
@@ -594,7 +599,7 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
         st.done = done_now
 
         # 6. rebuild fills (skipped when no ZMW applied anything)
-        if bool(pushing.any()):
+        if bool(device_fetch(pushing.any())):
             rebuild(st, reads, rlens, strands, table, width=width)
 
         # 7. next round's nearby filter from this round's favorables

@@ -7,16 +7,19 @@ the batch then polishes in one lockstep BatchPolisher on the device,
 with the 2x band retry for ZMWs whose reads failed the alpha/beta mating
 test (polish_prepared_batch); a batch that fails is bisected down to its
 poison ZMW(s), which get a serial rescue and are otherwise quarantined
-(resilience.quarantine), while a device error is re-raised.  The serial
+(resilience.quarantine), a batch that runs out of device memory is split
+at the same pinned shapes with its shape ceiling remembered
+(resilience.resources), and a device error is re-raised.  Every
+dispatch runs behind the polish.dispatch fault site, the hang watchdog
+and the transient-error retry.  The serial
 per-ZMW polish (polish_prepared, process_chunks(batch_polish=False))
 runs ArrowMultiReadScorer; with the Quiver model
 (ConsensusSettings.model = "quiver") each ZMW polishes on its own
 through QuiverMultiReadScorer.  Both use the generic refine loop.  Yield
 accounting keeps the reference's result categories (Consensus.h:155-208,
-ccs.cpp:233-262).
-
-Not ported: the watchdog, the transient-error retry, the memory governor
-and its capacity splits, and the fault-injection sites."""
+ccs.cpp:233-262).  Trace spans (filter, draft, polish, polish.setup,
+polish.refine, polish.qv) and stage timers (draft, draft.poa, draft.map,
+polish) carry pbccs_tpu's names."""
 
 from __future__ import annotations
 
@@ -30,6 +33,8 @@ from typing import Sequence
 import numpy as np
 
 from pbccs_tpu_torch.device import is_device_error, resolve_device
+from pbccs_tpu_torch.obs import trace as obs_trace
+from pbccs_tpu_torch.obs.metrics import default_registry
 from pbccs_tpu_torch.models.arrow.params import decode_bases, encode_bases
 from pbccs_tpu_torch.models.arrow.refine import (RefineOptions,
                                                  consensus_qvs,
@@ -39,6 +44,8 @@ from pbccs_tpu_torch.models.arrow.scorer import (ADD_ALPHABETAMISMATCH,
                                                  ADD_SUCCESS,
                                                  ArrowMultiReadScorer)
 from pbccs_tpu_torch.poa.sparse import PoaAlignmentSummary, SparsePoa
+from pbccs_tpu_torch.resilience import resources
+from pbccs_tpu_torch.runtime import timing
 
 _log = logging.getLogger(__name__)
 
@@ -47,15 +54,31 @@ _log = logging.getLogger(__name__)
 ADAPTER_BEFORE = 1
 ADAPTER_AFTER = 2
 
+_reg = default_registry()
+
+# every entry into the batch-polish core (capacity splits and their
+# parts re-enter)
+_m_polish_dispatches = _reg.counter(
+    "ccs_polish_dispatches_total",
+    "polish_prepared_batch dispatches (incl. sub-dispatch re-entries)")
+
 
 def record_zmw_failure(stage: str, exc: BaseException,
                        zmw: str | None = None) -> None:
-    """Log one absorbed per-ZMW/per-batch exception with its traceback."""
+    """Account one absorbed per-ZMW/per-batch exception: the class and
+    traceback go to the log and ccs_zmw_failures_total{stage,exc}
+    increments."""
+    _reg.counter("ccs_zmw_failures_total",
+                 "Exceptions absorbed by per-ZMW fault isolation",
+                 stage=stage, exc=type(exc).__name__).inc()
     where = f"{stage}[{zmw}]" if zmw else stage
     tb = "".join(traceback.format_exception(type(exc), exc,
                                             exc.__traceback__))
-    _log.warning("%s: absorbed %s: %s\n%s", where, type(exc).__name__, exc,
-                 tb)
+    # strings only: a log record that kept `exc` would keep its traceback,
+    # and with it the failed dispatch's tensors, for as long as a handler
+    # holds the record
+    _log.warning("%s: absorbed %s: %s\n%s", where, type(exc).__name__,
+                 str(exc), tb)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -283,24 +306,30 @@ def prepare_chunk(chunk: Chunk, settings: ConsensusSettings
     if float(np.min(chunk.snr)) < settings.min_snr:
         return Failure.POOR_SNR, None
 
-    reads = filter_reads(chunk.reads, settings.min_length)
+    with obs_trace.span("filter", zmw=chunk.id):
+        reads = filter_reads(chunk.reads, settings.min_length)
     if not reads or all(r is None for r in reads):
         return Failure.NO_SUBREADS, None
 
-    css, keys, summaries = poa_consensus(reads, settings.max_poa_coverage)
-    if len(css) < settings.min_length:
-        return Failure.TOO_SHORT, None
+    with obs_trace.span("draft", zmw=chunk.id):
+        with timing.stage("draft.poa"):
+            css, keys, summaries = poa_consensus(reads,
+                                                 settings.max_poa_coverage)
+        if len(css) < settings.min_length:
+            return Failure.TOO_SHORT, None
 
-    mapped: list[MappedRead] = []
-    n_unmappable = 0
-    for r, k in zip(reads, keys):
-        if r is None or k < 0:
-            continue
-        mr = extract_mapped_read(r, summaries[k], settings.min_length)
-        if mr is None:
-            n_unmappable += 1
-            continue
-        mapped.append(mr)
+        mapped: list[MappedRead] = []
+        n_unmappable = 0
+        with timing.stage("draft.map"):
+            for r, k in zip(reads, keys):
+                if r is None or k < 0:
+                    continue
+                mr = extract_mapped_read(r, summaries[k],
+                                         settings.min_length)
+                if mr is None:
+                    n_unmappable += 1
+                    continue
+                mapped.append(mr)
 
     n_candidates = sum(1 for k in keys if k >= 0)
     if not mapped:
@@ -456,17 +485,18 @@ def _polish_tasks(preps: Sequence[PreparedZmw]) -> list:
 
 def _polish_batch_arrow(preps: Sequence[PreparedZmw],
                         settings: ConsensusSettings, device, *,
-                        buckets: tuple[int, int, int] | None = None
+                        buckets: tuple[int, ...] | None = None
                         ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One lockstep BatchPolisher over `preps` (shapes at least
-    `buckets` = (Imax, Jmax, R)), outcomes ALIGNED with `preps`.  Raises
+    `buckets` = (Imax, Jmax, R[, Z])), outcomes ALIGNED with `preps`.  Raises
     on any batch-path failure: polish_prepared_batch handles it."""
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
 
     t0 = time.monotonic()
     tasks = _polish_tasks(preps)
-    polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
-                             buckets=buckets, device=device)
+    with obs_trace.span("polish.setup", zmws=len(preps)):
+        polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
+                                 buckets=buckets, device=device)
     gate_info = [_read_gates(p, polisher.statuses[z], settings)
                  for z, p in enumerate(preps)]
     # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
@@ -509,7 +539,8 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
     skip = gate_failed | set(wide_pick)
     # z-score statistics describe the draft template (serial-path parity)
     global_zs = polisher.global_zscores()
-    refine_results = polisher.refine(settings.refine, skip=skip)
+    with obs_trace.span("polish.refine", zmws=len(preps) - len(skip)):
+        refine_results = polisher.refine(settings.refine, skip=skip)
     wide_refine = wide_qvs = wide_gz = None
     if wide_pick:
         live_wide = {wi for z, wi in wide_pick.items() if z not in gate_failed}
@@ -522,8 +553,11 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
     # non-converged ZMWs are discarded by _finish_zmw: no QVs for them
     skip = skip | {z for z, r in enumerate(refine_results)
                    if not r.converged}
-    qvs = polisher.consensus_qvs(skip=skip)
-    polish_ms = (time.monotonic() - t0) * 1e3 / max(len(preps), 1)
+    with obs_trace.span("polish.qv", zmws=len(preps) - len(skip)):
+        qvs = polisher.consensus_qvs(skip=skip)
+    polish_s = time.monotonic() - t0
+    timing.add_stage("polish", polish_s)
+    polish_ms = polish_s * 1e3 / max(len(preps), 1)
 
     outcomes: list[tuple[Failure, ConsensusResult | None]] = []
     for z, p in enumerate(preps):
@@ -551,22 +585,27 @@ def prepare_batch(chunks: Sequence[Chunk],
                   ) -> tuple[ResultTally, list[PreparedZmw]]:
     """The host half of a batch: every chunk through filter -> POA draft
     -> mapping, with per-ZMW fault isolation (an exception is logged and
-    tallied as Other, reference Consensus.h:543-548).  Returns (tally of
-    prep-stage outcomes, survivors ready to polish)."""
+    tallied as Other, reference Consensus.h:543-548) and the prep.zmw
+    fault site.  Returns (tally of prep-stage outcomes, survivors ready to
+    polish)."""
+    from pbccs_tpu_torch.resilience import faults
+
     settings = settings or ConsensusSettings()
     tally = ResultTally()
     preps: list[PreparedZmw] = []
-    for chunk in chunks:
-        try:
-            failure, prep = prepare_chunk(chunk, settings)
-        except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
-            record_zmw_failure("prepare", e, zmw=chunk.id)
-            tally.tally(Failure.OTHER)
-            continue
-        if failure is not None:
-            tally.tally(failure)
-        else:
-            preps.append(prep)
+    with timing.stage("draft"):
+        for chunk in chunks:
+            try:
+                faults.maybe_fail("prep.zmw", keys=[chunk.id])
+                failure, prep = prepare_chunk(chunk, settings)
+            except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
+                record_zmw_failure("prepare", e, zmw=chunk.id)
+                tally.tally(Failure.OTHER)
+                continue
+            if failure is not None:
+                tally.tally(failure)
+            else:
+                preps.append(prep)
     return tally, preps
 
 
@@ -574,8 +613,10 @@ def _pinned_batch_shapes(preps: Sequence[PreparedZmw],
                          buckets: tuple[int, int, int] | None
                          ) -> tuple[int, int, int]:
     """The (Imax, Jmax, R) the full batch polishes at: quarantine
-    sub-dispatches pin to these, so (the band width being a function of
-    the Jmax bucket) the surviving ZMWs come out byte-identical."""
+    sub-dispatches pin to these (and to the batch's Z), so (the band
+    width being a function of the Jmax bucket) the surviving ZMWs come
+    out byte-identical; capacity-split parts pin to these with a Z of
+    their own, the memory relief."""
     from pbccs_tpu_torch.parallel.batch import effective_shapes
 
     imax, jmax, r, _ = effective_shapes(
@@ -583,6 +624,37 @@ def _pinned_batch_shapes(preps: Sequence[PreparedZmw],
         max((len(m.seq) for p in preps for m in p.mapped), default=8),
         max(len(p.css) for p in preps), buckets=buckets)
     return imax, jmax, r
+
+
+def _guarded_dispatch(preps: Sequence[PreparedZmw],
+                      settings: ConsensusSettings, device, *,
+                      buckets: tuple[int, ...] | None
+                      ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """One fault-domain batch dispatch: the chaos fault site
+    ("polish.dispatch", keyed by ZMW ids so a spec can poison one ZMW)
+    inside the hang watchdog (ambient deadline: --polishTimeout /
+    PBCCS_WATCHDOG_S; off by default) inside a bounded retry on
+    transient errors.  A watchdog timeout is never retried -- a hang is
+    not transient; the quarantine path isolates it instead -- and no
+    device error is (retry.is_transient_device_error)."""
+    from pbccs_tpu_torch.resilience import faults, retry, watchdog
+
+    ids = [p.chunk.id for p in preps]
+
+    def dispatch():
+        # the fault site sits INSIDE the watchdog scope: an injected
+        # delay exercises exactly the hung-dispatch recovery path
+        faults.maybe_fail("polish.dispatch", keys=ids)
+        return _polish_batch_arrow(preps, settings, device, buckets=buckets)
+
+    def attempt():
+        return watchdog.run_with_deadline(dispatch, site="polish.dispatch")
+
+    return retry.DEVICE_RETRY.run(
+        attempt,
+        retry_on=lambda e: not isinstance(e, watchdog.WatchdogTimeout)
+        and retry.is_transient_device_error(e),
+        site="polish.dispatch")
 
 
 ON_ERROR = ("bisect", "serial")
@@ -597,15 +669,24 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
     """Polish prepared ZMWs in one lockstep BatchPolisher; outcomes
     ALIGNED with `preps`.
 
-    A batch that raises is recovered by `on_error`: "bisect" (default)
-    bisects it in O(k log Z) re-dispatches pinned to the parent's
-    shapes to isolate the k poison ZMW(s); "serial" re-runs every ZMW
-    through the serial polish.  Either way an isolated ZMW whose serial
-    rescue fails too is quarantined (resilience.quarantine).  A device
-    error (device.is_device_error) is re-raised, never bisected.
-    Quiver ZMWs polish one by one with per-ZMW isolation."""
-    from pbccs_tpu_torch.resilience import quarantine
+    The dispatch is guarded (_guarded_dispatch: fault site, watchdog,
+    transient retry).  A failure is classified capacity first, then
+    device, then task:
 
+      * capacity (resources.is_capacity_error: a CUDA OOM, an injected
+        `oom`): never retried at the same shape and never quarantined --
+        the batch splits Z -> Z/2 at the parent's pinned (Imax, Jmax, R),
+        the MemoryGovernor records a ceiling for this (device, bucket),
+        and later batches of the bucket are pre-split at admission;
+      * device (device.is_device_error: a kernel build, load or launch
+        failure, a sticky CUDA error): re-raised;
+      * task: recovered by `on_error` -- "bisect" (default) isolates the
+        k poison ZMW(s) in O(k log Z) re-dispatches pinned to the
+        parent's shapes, "serial" re-runs every ZMW through the serial
+        polish.  Either way an isolated ZMW whose serial rescue fails
+        too is quarantined (resilience.quarantine).
+
+    Quiver ZMWs polish one by one with per-ZMW isolation."""
     if on_error not in ON_ERROR:
         raise ValueError(f"on_error must be one of {ON_ERROR}, "
                          f"got {on_error!r}")
@@ -613,35 +694,124 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
     dev = resolve_device(device)
     if not preps:
         return []
+    _m_polish_dispatches.inc()
     if settings.model == "quiver":
         return [_isolated(lambda p=p: polish_prepared(p, settings,
                                                       device=dev),
                           "polish.quiver", p.chunk.id) for p in preps]
     pin = _pinned_batch_shapes(preps, buckets)
+    cap = resources.default_governor().cap(
+        resources.shape_bucket(*pin), device=resources.current_device())
+    if cap is not None and len(preps) > cap:
+        # admission pre-split: the governor already learned this bucket
+        # runs out of memory past `cap` ZMWs on this device -- dispatch
+        # ceiling-sized parts pinned to the parent's (Imax, Jmax, R)
+        # instead of paying the OOM again
+        resources.note_presplit()
+        _log.info("memory governor: pre-splitting batch of %d ZMW(s) at "
+                  "ceiling %d (bucket %s)", len(preps), cap, pin)
+        out: list[tuple[Failure, ConsensusResult | None]] = []
+        start = 0
+        for size in resources.split_sizes(len(preps), cap):
+            out.extend(_polish_split_part(preps[start:start + size],
+                                          settings, dev, pin,
+                                          on_error=on_error))
+            start += size
+        return out
+    return _polish_guarded(preps, settings, dev, buckets=buckets, pin=pin,
+                           on_error=on_error)
+
+
+def _polish_split_part(preps: Sequence[PreparedZmw],
+                       settings: ConsensusSettings, device, pin, *,
+                       on_error: str
+                       ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """One part of a capacity split or an admission pre-split: pinned to
+    the parent's (Imax, Jmax, R) bucket (the band width is the parent's;
+    the smaller Z is the memory relief), with the full recovery (further
+    capacity splits, quarantine, serial rescue)."""
+    return _polish_guarded(preps, settings, device, buckets=pin, pin=pin,
+                           on_error=on_error)
+
+
+def _capacity_split(preps: Sequence[PreparedZmw],
+                    settings: ConsensusSettings, device, pin, *,
+                    on_error: str, note: resources.CapacityError
+                    ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """Recovery from a capacity failure at batch size Z: record the
+    governor ceiling (Z // 2 for this device and bucket) and re-dispatch
+    the two halves at the pinned bucket shapes, each with the full
+    recovery (further splits, quarantine).  A singleton that alone does
+    not fit gets the serial rescue (its last chance), then quarantines
+    -- never a same-shape retry, never a bisection tour over healthy
+    ZMWs.  Called after the failed dispatch's exception is gone (`note`
+    keeps its type and message), so the halves do not run beside the
+    failed attempt's tensors."""
+    from pbccs_tpu_torch.resilience import quarantine
+
+    resources.default_governor().record_oom(
+        resources.shape_bucket(*pin), len(preps))
+    if len(preps) == 1:
+        return [quarantine.serial_rescue(preps[0], settings, note,
+                                         device=device)]
+    resources.note_oom_split()
+    mid = len(preps) // 2
+    out: list[tuple[Failure, ConsensusResult | None]] = []
+    for sub in (preps[:mid], preps[mid:]):
+        out.extend(_polish_split_part(sub, settings, device, pin,
+                                      on_error=on_error))
+    return out
+
+
+def _polish_guarded(preps: Sequence[PreparedZmw],
+                    settings: ConsensusSettings, device, *,
+                    buckets: tuple[int, ...] | None, pin,
+                    on_error: str
+                    ) -> list[tuple[Failure, ConsensusResult | None]]:
+    """One guarded dispatch with the failure classification of
+    polish_prepared_batch (capacity -> split, device -> re-raise,
+    task -> quarantine bisection or the serial fallback).  Bisection
+    sub-dispatches run at this dispatch's (Imax, Jmax, R) and Z, so the
+    surviving ZMWs come out bit for bit as from this dispatch."""
+    from pbccs_tpu_torch.resilience import quarantine
+
+    def split(sub, note):
+        return _capacity_split(sub, settings, device, pin,
+                               on_error=on_error, note=note)
+
     try:
-        return _polish_batch_arrow(preps, settings, dev, buckets=buckets)
+        return _guarded_dispatch(preps, settings, device, buckets=buckets)
     except Exception as e:  # noqa: BLE001 -- classified below
-        if is_device_error(e):
+        if resources.is_capacity_error(e):
+            record_zmw_failure("polish.capacity", e,
+                               zmw=f"batch[{len(preps)}]")
+            note = resources.CapacityError.of(e)
+        elif is_device_error(e):
             raise
-        if on_error == "serial":
+        elif on_error == "serial":
             record_zmw_failure("polish.batch", e, zmw=f"batch[{len(preps)}]")
-            return [quarantine.serial_rescue(p, settings, e, device=dev)
+            return [quarantine.serial_rescue(p, settings, e, device=device)
                     for p in preps]
-        return quarantine.isolate(
-            preps, lambda sub: _polish_batch_arrow(sub, settings, dev,
-                                                   buckets=pin),
-            settings, e, device=dev)
+        else:
+            z = max(len(preps), buckets[3] if buckets and len(buckets) > 3
+                    else 0)
+            return quarantine.isolate(
+                preps,
+                lambda sub: _guarded_dispatch(sub, settings, device,
+                                              buckets=(*pin, z)),
+                settings, e, on_capacity=split, device=device)
+    return split(preps, note)
 
 
 def _isolated(fn, stage: str, zmw: str
               ) -> tuple[Failure, ConsensusResult | None]:
     """fn() with per-ZMW fault isolation: an exception is logged and
-    tallied as Other (reference Consensus.h:543-548), a device error
-    re-raised."""
+    tallied as Other (reference Consensus.h:543-548); a device error that
+    is not memory exhaustion is re-raised."""
     try:
         return fn()
     except Exception as e:  # noqa: BLE001 -- per-ZMW isolation
-        if is_device_error(e):
+        if not resources.is_capacity_error(e) and is_device_error(e):
             raise
         record_zmw_failure(stage, e, zmw=zmw)
         return Failure.OTHER, None
@@ -676,9 +846,10 @@ def process_chunks(chunks: Sequence[Chunk],
     tally, preps = prepare_batch(chunks, settings)
     if not preps:
         return tally
-    for failure, result in polish_prepared_batch(preps, settings,
-                                                 device=dev,
-                                                 on_error=on_error):
+    with obs_trace.span("polish", zmws=len(preps)):
+        outcomes = polish_prepared_batch(preps, settings, device=dev,
+                                         on_error=on_error)
+    for failure, result in outcomes:
         tally.tally(failure)
         if result is not None:
             tally.results.append(result)

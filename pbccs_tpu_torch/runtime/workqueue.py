@@ -26,9 +26,20 @@ import traceback
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Iterator, TypeVar
 
-from pbccs_tpu_torch.runtime.logging import Logger
+from pbccs_tpu_torch.obs.metrics import default_registry
 
 T = TypeVar("T")
+
+_reg = default_registry()
+# shared across WorkQueue instances (concurrent queues sum; normally one)
+_depth = _reg.gauge("ccs_workqueue_depth",
+                    "Tasks produced but not yet consumed")
+_produced = _reg.counter("ccs_workqueue_produced_total",
+                         "Tasks submitted to the work queue")
+_consumed = _reg.counter("ccs_workqueue_consumed_total",
+                         "Task results consumed in order")
+_failures = _reg.counter("ccs_workqueue_task_failures_total",
+                         "Worker tasks that raised (propagated)")
 
 
 class WorkQueue:
@@ -68,11 +79,19 @@ class WorkQueue:
 
         def run():
             try:
+                from pbccs_tpu_torch.resilience import faults
+
+                # chaos site: a worker-task crash exercises the
+                # propagate-to-producer/consumer path (and, under the
+                # CLI's --checkpoint, the resume-after-crash path)
+                faults.maybe_fail("workqueue.task")
                 return fn(*args, **kwargs)
             except BaseException as e:
                 # a propagated task failure aborts the whole pipeline;
                 # make sure the log carries the traceback even if the
                 # caller only surfaces the message
+                _failures.inc()
+                from pbccs_tpu_torch.runtime.logging import Logger
                 Logger.default().error(
                     "work queue task failed: "
                     + "".join(traceback.format_exception(
@@ -86,6 +105,8 @@ class WorkQueue:
                 raise
 
         self._futures.put(self._pool.submit(run))
+        _produced.inc()
+        _depth.inc()
 
     def finalize(self) -> None:
         """Signal that no more tasks will be produced."""
@@ -103,6 +124,8 @@ class WorkQueue:
                 result = fut.result()
             finally:
                 self._sem.release()
+                _depth.dec()
+                _consumed.inc()
             yield result
 
     def consume_with(self, consumer: Callable[[T], None]) -> None:
@@ -121,6 +144,7 @@ class WorkQueue:
             if fut is not None:
                 try:
                     self._sem.release()
+                    _depth.dec()
                 except ValueError:
                     pass  # bounded: already fully released
         # wake any consumer still blocked on the queue (producer aborted

@@ -5,12 +5,15 @@ Inputs: a FASTA of three simulated ZMWs and a P6-C4 subread BAM of two
 (tests/test_cli.py's fixture shape).  Contract: the same records (names,
 sequences; QVs within 1; integer tags equal, float tags within 1e-3),
 identical report text, a .pbi that reads back to the same holes; plus
-the CLI gates and usage errors, the flags of unported tiers rejected with
-exit 2, and the batch-failure recovery modes."""
+the CLI gates and usage errors, the flags of the resilience and
+observability tiers accepted and acting, the flags of unported tiers
+rejected with exit 2, and the batch-failure recovery modes."""
 
+import json
 import os
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from pbccs_tpu_torch.io.bam import (BamHeader, BamReader, BamRecord,
 from pbccs_tpu_torch.io.fasta import read_fasta, write_fasta
 from pbccs_tpu_torch.io.pbi import PbiIndex
 from pbccs_tpu_torch.models.arrow.params import decode_bases
-from pbccs_tpu_torch.resilience import quarantine
+from pbccs_tpu_torch.obs.metrics import default_registry
+from pbccs_tpu_torch.resilience import faults, quarantine, watchdog
 from pbccs_tpu_torch.simulate import simulate_zmw
 
 torch.set_num_threads(1)
@@ -184,11 +188,8 @@ def test_missing_input_exits_2(tmp_path):
 
 
 UNPORTED = [["--devices", "2"], ["--prepareWorkers", "2"],
-            ["--schedPolicy", "sticky"], ["--checkpoint", "c.ckpt"],
-            ["--resume"], ["--memBudget", "8G"], ["--faults", "x:error"],
-            ["--faultSeed", "1"], ["--polishTimeout", "5"],
-            ["--trace-out", "t.json"], ["--profile-dir", "p"],
-            ["--perfLedger", "l.ndjson"], ["--tuneProfile", "auto"]]
+            ["--schedPolicy", "sticky"], ["--perfLedger", "l.ndjson"],
+            ["--tuneProfile", "auto"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=lambda f: f[0])
@@ -197,6 +198,97 @@ def test_unported_flags_exit_2(tmp_path, flag):
         run([str(tmp_path / "o.bam"), str(tmp_path / "in.fasta"), *flag],
             device="cpu")
     assert e.value.code == 2
+
+
+PORTED = ["--checkpoint", "--resume", "--memBudget", "--faults",
+          "--faultSeed", "--polishTimeout", "--trace-out", "--profile-dir"]
+
+
+def _fired(spec, seed, n):
+    """How many of n calls a FaultInjector(spec, seed) fires on."""
+    inj = faults.FaultInjector(spec, seed=seed)
+    for _ in range(n):
+        try:
+            inj.maybe_fail("prep.zmw")
+        except faults.InjectedFault:
+            pass
+    return inj.fired()
+
+
+@pytest.mark.parametrize("flag", PORTED)
+def test_ported_flags_are_accepted_and_act(cases, tmp_path, monkeypatch,
+                                           flag):
+    """Each flag of the resilience and observability tiers is accepted
+    and does what it does in pbccs_tpu, on the BAM input; the injector
+    and deadline a run arms are gone after it."""
+    out, rep = str(tmp_path / "o.bam"), str(tmp_path / "r.csv")
+    log = tmp_path / "log.txt"
+    clean = open(cases["bam"]["port"][0], "rb").read()
+    argv = [out, cases["inputs"]["bam"], "--reportFile", rep,
+            "--numThreads", "2", "--logFile", str(log)]
+    threads = []
+    if flag == "--polishTimeout":
+        real = tp._polish_batch_arrow
+
+        def spy(preps, settings, device, *, buckets=None):
+            threads.append(threading.current_thread().name)
+            return real(preps, settings, device, buckets=buckets)
+
+        monkeypatch.setattr(tp, "_polish_batch_arrow", spy)
+    extra = {
+        "--checkpoint": ["--checkpoint", str(tmp_path / "c.ckpt")],
+        "--resume": ["--resume"],
+        "--memBudget": ["--memBudget", "8G"],
+        "--faults": ["--faults", f"polish.dispatch:error~{MOVIE}/43"],
+        "--faultSeed": ["--faults", "prep.zmw:error%0.5", "--faultSeed"],
+        "--polishTimeout": ["--polishTimeout", "300"],
+        "--trace-out": ["--trace-out", str(tmp_path / "t.json")],
+        "--profile-dir": ["--profile-dir", str(tmp_path / "prof")],
+    }[flag]
+    if flag == "--faultSeed":
+        # a seed that fires on the two ZMWs otherwise than seed 0 does
+        spec = "prep.zmw:error%0.5"
+        seed = next(s for s in range(1, 64)
+                    if 0 < _fired(spec, s, 2) != _fired(spec, 0, 2))
+        extra = [*extra, str(seed)]
+        want = _fired(spec, seed, 2)
+    scope = default_registry().scope()
+    assert run(argv + extra, device="cpu") == 0
+    assert faults.get() is None and watchdog.default_deadline_s() == 0
+    assert "run metrics:" in log.read_text()
+    text = open(rep).read()
+    got = open(out, "rb").read()
+    if flag == "--checkpoint":
+        assert got == clean and not (tmp_path / "c.ckpt").exists()
+        assert scope.counter_value("ccs_checkpoint_records_total",
+                                   kind="written") == 1
+    elif flag == "--resume":
+        assert got == clean and not os.path.exists(out + ".ckpt")
+        assert "resume: no journal at" in log.read_text()
+    elif flag == "--memBudget":
+        assert got == clean
+        assert "--memBudget gates" in log.read_text()
+        for bad in ("lots", "0.5"):
+            assert run(argv + ["--memBudget", bad], device="cpu") == 2
+    elif flag == "--faults":
+        assert "Failed -- Exception thrown,1," in text
+        assert [r.tags["zm"] for r in _records(out)] == [42]
+        assert scope.counter_value("ccs_quarantined_zmws_total") == 1
+    elif flag == "--faultSeed":
+        assert scope.counter_value("ccs_faults_injected_total",
+                                   site="prep.zmw", kind="error") == want
+        assert f"Failed -- Exception thrown,{want}," in text
+    elif flag == "--polishTimeout":
+        assert got == clean
+        assert threads == ["pbccs-watchdog-polish.dispatch"]
+    elif flag == "--trace-out":
+        names = {e["name"] for e in json.load(open(tmp_path / "t.json"))[
+            "traceEvents"]}
+        assert {"filter", "draft", "polish", "polish.setup",
+                "polish.refine", "polish.qv", "emit"} <= names
+    else:
+        (trace,) = os.listdir(tmp_path / "prof")
+        assert json.load(open(tmp_path / "prof" / trace))["traceEvents"]
 
 
 @pytest.mark.parametrize("sub", ["serve", "router", "fleet", "warmup",

@@ -458,3 +458,95 @@ def test_serial_scorer_card_matches_cpu(cuda, W):
     assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
     np.testing.assert_allclose(got, cpu.score_mutations(muts), rtol=2e-5,
                                atol=2e-3)
+
+
+def test_cuda_oom_splits_a_pinned_batch(cuda, monkeypatch):
+    """A real torch.cuda.OutOfMemoryError: with the allocator capped
+    between the reserved peak of an 8-ZMW and of a 16-ZMW dispatch (2 kb
+    ZMWs, pinned shapes), polish_prepared_batch splits the batch, records
+    a ceiling of 8 for its bucket, quarantines nothing, and its records
+    equal the unsplit batch's (sequences, QVs, z-scores)."""
+    import pbccs_tpu_torch.pipeline as tp
+    from pbccs_tpu_torch.obs.metrics import default_registry
+    from pbccs_tpu_torch.resilience import quarantine, resources
+
+    rng = np.random.default_rng(31)
+    chunks = []
+    for z in range(16):
+        _, reads, _, snr = simulate_zmw(rng, 2000, 6)
+        chunks.append(tp.Chunk(f"o/{z}", [tp.Subread(f"o/{z}/{i}", r)
+                                          for i, r in enumerate(reads)],
+                               snr))
+    settings = tp.ConsensusSettings()
+    _, preps = tp.prepare_batch(chunks, settings)
+    assert len(preps) == 16
+    pin = tp._pinned_batch_shapes(preps, None)
+    want = tp.polish_prepared_batch(preps, settings, device=cuda)
+
+    def reserved_peak(sub):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_reserved()
+        tp._polish_batch_arrow(sub, settings, cuda, buckets=pin)
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_reserved() - base
+
+    half = max(reserved_peak(preps[:8]), reserved_peak(preps[8:]))
+    full = reserved_peak(preps)
+    assert full > half
+    monkeypatch.setattr(resources, "_default_governor",
+                        resources.MemoryGovernor())
+    torch.cuda.empty_cache()
+    limit = torch.cuda.memory_reserved() + (half + full) // 2
+    total = torch.cuda.get_device_properties(cuda).total_memory
+    quarantine.reset_event_counts()
+    scope = default_registry().scope()
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+        got = tp.polish_prepared_batch(preps, settings, device=cuda)
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    assert scope.counter_value("ccs_zmw_failures_total",
+                               stage="polish.capacity",
+                               exc="OutOfMemoryError") >= 1
+    assert scope.counter_value("ccs_resource_oom_splits_total") >= 1
+    assert resources.default_governor().cap(
+        resources.shape_bucket(*pin)) == 8
+    assert quarantine.event_counts() == dict.fromkeys(
+        quarantine.event_counts(), 0)
+    assert [f for f, _ in got] == [f for f, _ in want]
+    for (_, a), (_, b) in zip(got, want):
+        if b is None:
+            assert a is None
+            continue
+        assert a.sequence == b.sequence
+        np.testing.assert_array_equal(a.qvs, b.qvs)
+        np.testing.assert_array_equal(a.zscores, b.zscores)
+
+
+def test_watchdog_worker_launches_on_the_callers_stream(cuda):
+    """run_with_deadline moves the guarded call onto a worker thread; the
+    worker enters the caller's device and current stream, so K1 launches
+    on a non-default stream the caller set, with the same result."""
+    from pbccs_tpu_torch.resilience import watchdog
+
+    args = _k1_args(cuda, 96)
+    want = fc.arrow_fill(*args)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    before = fc.arrow_fill.launches
+
+    def guarded():
+        return torch.cuda.current_stream().cuda_stream, fc.arrow_fill(*args)
+
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stream, got = watchdog.run_with_deadline(guarded, 120.0,
+                                                 site="test.stream")
+    side.synchronize()
+    assert stream == side.cuda_stream
+    assert stream != torch.cuda.default_stream().cuda_stream
+    assert fc.arrow_fill.launches == before + 1
+    for g, w in zip(got, want):
+        _assert_same_fill(g, w)

@@ -192,8 +192,9 @@ def test_wrappers_reject_unsupported_devices():
 
 
 def test_port_imports_without_jax():
-    """pbccs_tpu_torch (every module, the Quiver path's and the CLI's
-    named) and chip_smoke.py import with jax and pbccs_tpu poisoned."""
+    """pbccs_tpu_torch (every module, the Quiver path's, the CLI's and
+    its resilience and observability tiers' named) and chip_smoke.py
+    import with jax and pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -210,6 +211,13 @@ def test_port_imports_without_jax():
         "        'runtime.chemistry', 'runtime.workqueue',\n"
         "        'utils.intervals', 'resilience.quarantine')}\n"
         "assert cli <= names, cli - names\n"
+        "tiers = {'pbccs_tpu_torch.' + n for n in\n"
+        "         ('contract', 'runtime.readid', 'runtime.timing',\n"
+        "          'obs.metrics', 'obs.trace', 'obs.profiling',\n"
+        "          'resilience.faults', 'resilience.retry',\n"
+        "          'resilience.watchdog', 'resilience.resources',\n"
+        "          'resilience.checkpoint')}\n"
+        "assert tiers <= names, tiers - names\n"
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"

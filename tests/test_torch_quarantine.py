@@ -1,7 +1,8 @@
 """Batch-failure recovery of the port's process_chunks: quarantine
-bisection, the serial rescue, draft-only degradation, and device errors
-that are re-raised instead of bisected: a kernel build, load or launch
-failure, a kernel wrapper's refusal of its arguments, a CUDA error.
+bisection, the serial rescue, draft-only degradation, capacity splits
+of a batch that runs out of device memory, and device errors that are
+re-raised instead of bisected: a kernel build, load or launch failure,
+a kernel wrapper's refusal of its arguments, a sticky CUDA error.
 
 A poison ZMW is injected by monkeypatching the batch dispatch
 (pipeline._polish_batch_arrow) to raise whenever the batch holds it;
@@ -21,7 +22,8 @@ from pbccs_tpu_torch.ops import dense_score_cuda as dsc
 from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
 from pbccs_tpu_torch.ops import quiver_fill_cuda as qfc
 from pbccs_tpu_torch.ops.cuda_lib import KernelError, LaunchRefused
-from pbccs_tpu_torch.resilience import quarantine
+from pbccs_tpu_torch.obs.metrics import default_registry
+from pbccs_tpu_torch.resilience import quarantine, resources
 from pbccs_tpu_torch.simulate import simulate_zmw
 
 torch.set_num_threads(1)
@@ -156,7 +158,6 @@ def test_serial_fallback_reruns_the_batch(monkeypatch, clean):
 DEVICE_ERRORS = [
     RuntimeError("CUDA error: an illegal memory access was encountered"),
     KernelError("dense_score: CUDA launch failed with error 719"),
-    torch.cuda.OutOfMemoryError("CUDA out of memory. Tried to allocate"),
 ]
 
 
@@ -171,6 +172,44 @@ def test_device_errors_are_reraised(monkeypatch, exc, on_error):
     assert len(dispatched) == 1
     assert quarantine.event_counts() == dict.fromkeys(
         quarantine.event_counts(), 0)
+
+
+@pytest.mark.parametrize("on_error", ["bisect", "serial"])
+def test_out_of_memory_splits_the_batch(monkeypatch, clean, on_error):
+    """A torch.cuda.OutOfMemoryError is capacity, not a device fault: the
+    batch splits at its pinned shapes (never bisected, never retried at
+    the same shape, in either on_error mode), a ceiling is recorded, no
+    ZMW is quarantined, and every ZMW comes out byte-identical to the
+    unsplit run."""
+    monkeypatch.setattr(resources, "_default_governor",
+                        resources.MemoryGovernor())
+    real = tp._polish_batch_arrow
+    dispatched = []
+
+    def dispatch(preps, settings, device, *, buckets=None):
+        dispatched.append(([p.chunk.id for p in preps], buckets))
+        if len(preps) > 2:
+            raise torch.cuda.OutOfMemoryError(
+                "CUDA out of memory. Tried to allocate 2.00 GiB")
+        return real(preps, settings, device, buckets=buckets)
+
+    monkeypatch.setattr(tp, "_polish_batch_arrow", dispatch)
+    quarantine.reset_event_counts()
+    scope = default_registry().scope()
+    tally = tp.process_chunks(_chunks(), on_error=on_error, device="cpu")
+    assert quarantine.event_counts() == dict.fromkeys(
+        quarantine.event_counts(), 0)
+    assert tally.counts[tp.Failure.SUCCESS] == N_ZMWS
+    for r in tally.results:
+        _same(r, clean[r.id])
+    # 5 -> 2 + 3, 3 -> 1 + 2: every part pinned to the parent's shapes
+    assert [len(ids) for ids, _ in dispatched] == [5, 2, 3, 1, 2]
+    pins = {b for _, b in dispatched[1:]}
+    assert len(pins) == 1 and None not in pins
+    assert scope.counter_value("ccs_resource_oom_splits_total") == 2
+    assert scope.counter_value("ccs_resource_oom_ceilings_total") == 2
+    assert resources.default_governor().cap(
+        resources.shape_bucket(*pins.pop())) == 1
 
 
 def _meta(*shape, dtype=torch.float32):
