@@ -15,7 +15,8 @@ script exits non-zero):
      (192), forward, backward and both in one launch (the launch the
      main path makes): band values bitwise, log-scales within 1e-6
      relative; CUDA-event times of each launch and of the plain version;
-     the bound counted by operation type (k1_bound);
+     the bound counted by operation type (k1_bound, from
+     obs/roofline.py's k1_work);
   3. dense_score (K3): on the fused fills of phase 2 at W = 96 and 192,
      and on K1's fills at W = 256 (the 2x retry of an explicit
      band_width of 128, spilled), the kernel against its plain version with every 64-position block
@@ -103,6 +104,18 @@ script exits non-zero):
      polish.refine, polish.qv and emit, device wait on every polish and
      polish.refine span, the torch.profiler trace naming K1's and K3's
      kernels, the run's wall beside phase 10's and its stage seconds.
+     The poison run dumps the flight recorder (ccs_flight_dumps_total
+     {reason=quarantine} at least 1, the logged records all
+     source "device") and the capacity run once ({reason=oom-ceiling});
+ 12. ledger: the CLI of phase 10 with --perfLedger on the card, launch
+     counters zeroed and the registry windowed around it: one batch_run
+     record with platform "gpu" and torch_version, its counter, compile
+     and ratio fields equal to the window's, roofline_flops the sum of
+     card.flops_for(Z) over the run's setups, 0 < roofline_efficiency
+     <= 1, the BAM byte-equal to phase 10's; `ccs roofline --ledger` and
+     `--cards` exit 0; then score_read (K1) and score_read_quiver (K2) of
+     one 2 kb read on the card against the CPU within SCORE_ATOL, their
+     launches counted.
 Then the card's name and power limit, the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -113,7 +126,6 @@ from __future__ import annotations
 
 import inspect
 import json
-import math
 import subprocess
 import sys
 import time
@@ -130,18 +142,6 @@ N_CROSS = 4
 N_QUIVER = 4
 N_SERIAL = 4
 QUIVER_SMALL = (300, 5)     # template length, passes of the card-vs-CPU ZMW
-# published peak of one H100 SXM (NVIDIA data sheet): HBM bytes/s
-PEAK_BYTES = 3.35e12
-# issue rates of its 132 SMs at the data sheet's 1.98 GHz boost clock, by
-# operation type (CUDA C++ Programming Guide, throughput of native
-# arithmetic instructions, compute capability 9.0, results per clock per
-# SM): 128 float32 adds or multiplies (the data sheet's 67 TFLOP/s counts
-# a fused multiply-add as two; the kernels build with -fmad=false, so
-# each add or multiply is one instruction), 64 32-bit integer adds,
-# compares, min/max and logic operations (selects counted with them)
-SM_CLOCKS = 132 * 1.98e9
-RATE_F32_OP = 128 * SM_CLOCKS
-RATE_INT_OP = 64 * SM_CLOCKS
 
 
 def emit(obj) -> None:
@@ -223,13 +223,6 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound_ms(n_bytes: float, n_f32: float) -> tuple[float, str]:
-    """(bound ms, bound_by) of bytes at PEAK_BYTES against float32 adds
-    and multiplies at RATE_F32_OP."""
-    t_b, t_o = n_bytes / PEAK_BYTES, n_f32 / RATE_F32_OP
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations")
-
-
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -282,40 +275,26 @@ def kernel_fixture(chunks, device):
                            Imax=pol._Imax))
 
 
-#: per lane and column of csrc/arrow_fill.cu, its integer, compare,
-#: select and logic operations, counted in the kernel body per held slot
-#: (forward, backward): the valid row 3, the emission and insertion
-#: selects 4, the match factor 2 / 5, the match gate (source row and
-#: band test) 6, the deletion gate 5, the insertion gate and scan cut 5,
-#: the dead / pinned-column selects 3, the seed-lane test 2 and the
-#: output select 1.  The layout's shuffles, roll selects and read-base
-#: reload tests are not counted.
-K1_INT_OPS = {False: 31, True: 34}
+def _bound(work):
+    """(bound ms, bound_by, bytes, (integer ops, float32 ops)) of a work
+    count (obs/roofline.py: bytes at the H100's HBM rate against the
+    operations, whose integer and float32 pipes issue side by side)."""
+    from pbccs_tpu_torch.obs.roofline import bound_seconds
+
+    n_bytes, n_int, n_f32 = work
+    t, by = bound_seconds(n_bytes, n_int, n_f32)
+    return t * 1e3, by, n_bytes, (n_int, n_f32)
 
 
 def k1_bound(reads, tpls, W: int, dirs):
-    """(bound ms, bound_by, bytes, ops) of one K1 launch over the
-    directions `dirs` (False forward, True backward): each input read once
-    (reads, template windows, transitions, lengths, band offsets), each
-    output written once (band values and log-scales per direction); per
-    lane of every column K1_INT_OPS at RATE_INT_OP and 6 + 3 ceil(log2 W)
-    float32 operations at RATE_F32_OP (the emission product, the match
-    and deletion products and their sum, 3 per scan step, the column max,
-    the scaling divide).  The two pipes issue side by side, so the
-    operations take the longer of their two times; `ops` is (integer,
-    float32)."""
+    """The bound of one K1 launch over the directions `dirs` (False
+    forward, True backward) on these reads and template windows
+    (roofline.k1_work: each input read once, each output written once,
+    the operations per lane of every column by type)."""
+    from pbccs_tpu_torch.obs.roofline import k1_work
+
     R, Imax = reads.shape
-    Jmax = tpls.shape[1]
-    nc = Jmax + 1
-    n_bytes = (R * Imax + R * Jmax + 16 * R * Jmax + 4 * (2 * R + R * nc)
-               + 4 * len(dirs) * (R * nc * W + R * nc))
-    cells = R * nc * W
-    n_int = cells * sum(K1_INT_OPS[d] for d in dirs)
-    n_f32 = cells * len(dirs) * (6 + 3 * math.ceil(math.log2(W)))
-    t_b = n_bytes / PEAK_BYTES
-    t_o = max(n_int / RATE_INT_OP, n_f32 / RATE_F32_OP)
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            n_bytes, (n_int, n_f32))
+    return _bound(k1_work(R, Imax, tpls.shape[1], W, dirs))
 
 
 def timed(fn):
@@ -398,52 +377,14 @@ def phase_fill(fx) -> dict:
     return out, kept
 
 
-#: per lane and position of csrc/dense_score.cu, the integer, compare,
-#: select and logic operations the function needs, counted in the kernel
-#: body per held slot: the band rows of columns p-1, p, p+1 (3 x 4); the
-#: read codes of the one new column (its band row 4, range tests and
-#: selects 6); the first columns (the shared one's operand band tests and
-#: selects 8, emission 2, ext_b's gates 8, insertion mask 5, per base its
-#: test and selects 3 x 4; the deletion's 26); the second columns' b
-#: terms (shared band tests 6, per base operand selects, emission and
-#: gates 12 x 4; the deletion's 26) and insertion coefficients (mask 5,
-#: 8 x 3); the three link operand pairs (3 x 12).  What only this
-#: kernel's layout needs is not counted: the shuffles and roll selects,
-#: the packing of three columns' read codes into one register, its slide
-#: and the codes' extraction (15 more), and the output lane select.
-K3_INT_OPS = 12 + 10 + 61 + 80 + 29 + 36
-
-
 def k3_bound(R: int, nc: int, Imax: int, Jm: int, W: int,
              positions: int | None = None, blocks: int | None = None):
-    """(bound ms, bound_by, bytes, ops) of K3 over `positions` scored
-    (read, position) cells in `blocks` live (read, 64-position) blocks
-    (default all R x Jm in all blocks): each input read once -- the alpha
-    and beta columns of the scored positions (a block's positions and two
-    columns more of each), band offsets,
-    scale prefix and suffix, reads, window templates and transitions,
-    tables, lengths and live flags -- and the (R, Jm, 9) scores written
-    once; per lane of every scored position K3_INT_OPS at RATE_INT_OP and
-    71 + 42 ceil(log2 W) float32 operations at RATE_F32_OP (ext_b's 4 per
-    first and second column, 8 + 20; 3 per scan step of the 14 scans less
-    the unread last c product; the three link operand products; the nine
-    links' 4 products, sum and band-sum add; stick / 3 is divided once
-    per table row and window row, not per lane).  The two pipes issue
-    side by side, so the operations take the longer of their two times;
-    `ops` is (integer, float32)."""
-    NB = -(-Jm // 64)
-    n = R * Jm if positions is None else positions
-    blocks = R * NB if blocks is None else blocks
-    n_bytes = (4 * (2 * W * min(n + 2 * blocks, R * nc) + R * nc
-                    + 2 * R * (nc + 1) + 2 * R + R * NB + 9 * R * Jm)
-               + R * Imax + R * Jm + 16 * R * Jm + 128 * R)
-    S = math.ceil(math.log2(W))
-    n_int = n * W * K3_INT_OPS
-    n_f32 = n * W * (71 + 42 * S)
-    t_b = n_bytes / PEAK_BYTES
-    t_o = max(n_int / RATE_INT_OP, n_f32 / RATE_F32_OP)
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            n_bytes, (n_int, n_f32))
+    """The bound of K3 over `positions` scored (read, position) cells in
+    `blocks` live (read, 64-position) blocks, default all
+    (roofline.k3_work)."""
+    from pbccs_tpu_torch.obs.roofline import k3_work
+
+    return _bound(k3_work(R, nc, Imax, Jm, W, positions, blocks))
 
 
 def k1_fills(fx, W: int):
@@ -677,16 +618,6 @@ K2_CHECK_ROWS = 349
 #: rows of the scorer's batch held against the plain version: the first
 #: and last K2_SAMPLE_EDGE and every (R // K2_SAMPLE_STRIDE)-th
 K2_SAMPLE_EDGE, K2_SAMPLE_STRIDE = 64, 256
-#: per lane and column of csrc/quiver_fill.cu, its integer, compare,
-#: select and logic operations, counted in the kernel body per held slot:
-#: the operand build (valid row 3, source row 1, step and scan-cut tests
-#: 2, Incorporate 2, tagged Delete 4, Extra 3, Merge 6, the four
-#: band-gated operand selects 7 + 6 + 7 + 4), the seed-lane and
-#: final-cell tests and the output select (3).  The layout's shuffles,
-#: roll selects and table-row reload tests are not counted.
-K2_INT_OPS = 45 + 3
-
-
 def quiver_fixture(chunk, truth, device):
     """K2 inputs at the Quiver path's shapes: a QuiverMultiReadScorer over
     one ZMW (its true template as the draft, flat default QV tracks) and
@@ -724,35 +655,18 @@ def quiver_fixture(chunk, truth, device):
 
 
 def k2_bound(qx, rows, vals: bool):
-    """(bound ms, bound_by, bytes, ops) of one K2 launch: each input read
-    once (the tables of the reads the rows name, read lengths, windows,
-    window lengths, row indices, band offsets), each output written once
-    (band values in the band-value mode, log-scales, final cells); per
-    lane of every column run (all nc in the band-value mode, J + 1 per
-    row in the log-likelihood-only mode) K2_INT_OPS at RATE_INT_OP and
-    float32 operations at RATE_F32_OP (the Incorporate/Delete products
-    and sum 3, the Merge quotient, product and sum 3, 3 per scan step,
-    the column max and the scaling divide 2).  The two pipes issue side
-    by side, so the operations take the longer of their two times; `ops`
-    is (integer, float32)."""
-    from pbccs_tpu_torch.ops.quiver_fill_cuda import N_COLS
+    """The bound of one K2 launch over `rows` (roofline.k2_work): the
+    tables of the reads the rows name, every column in the band-value
+    mode (`vals`), J + 1 per row in the log-likelihood-only mode."""
+    from pbccs_tpu_torch.obs.roofline import k2_work
 
-    W = qx["W"]
     R = rows["row_read"].shape[0]
     M, Jmax = rows["wins"].shape
-    nc = Jmax + 1
-    P = qx["tables"].shape[1]
     n_tab = int(torch.unique(rows["row_read"]).numel())
-    n_bytes = (4 * (R * nc * W * vals + 2 * R * nc + R + 2 * R
-                    + n_tab * P * N_COLS + n_tab + M) + M * Jmax)
     J = rows["wlens"][rows["row_win"].long()]
-    cols = R * nc if vals else int((J + 1).sum())
-    S = math.ceil(math.log2(W))
-    n_int, n_f32 = cols * W * K2_INT_OPS, cols * W * (3 + 3 + 3 * S + 2)
-    t_b = n_bytes / PEAK_BYTES
-    t_o = max(n_int / RATE_INT_OP, n_f32 / RATE_F32_OP)
-    return (max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations",
-            n_bytes, (n_int, n_f32))
+    cols = R * (Jmax + 1) if vals else int((J + 1).sum())
+    return _bound(k2_work(R, M, Jmax, qx["W"], n_tab, qx["tables"].shape[1],
+                          cols, vals))
 
 
 def phase_quiver_fill(qx) -> dict:
@@ -1248,6 +1162,12 @@ def phase_resilience(cli_out) -> dict:
         key = (name, tuple(sorted((k, str(v)) for k, v in labels.items())))
         return float(r["deltas"].get(key, 0.0))
 
+    def flight_dumps(log_path, reason):
+        """The records of each flight-recorder dump a run logged."""
+        tag = f"flight recorder dump ({reason}): "
+        return [json.loads(line.split(tag, 1)[1].split(": ", 1)[1])
+                for line in open(log_path) if tag in line]
+
     def differing(r, skip=()):
         """Holes whose record is not byte-equal to phase 10's."""
         got = {k: v[1] for k, v in r["records"].items() if k not in skip}
@@ -1259,7 +1179,10 @@ def phase_resilience(cli_out) -> dict:
     # (1) poison: one ZMW fails every dispatch and its serial rescue
     hole = sorted(ref)[5]          # a ZMW phase 10 polished
     zid = f"{CLI_MOVIE}/{hole}"
-    poison = run("poison", "--faults", f"polish.dispatch:error~{zid}")
+    poison_log = os.path.join(d, "p11_poison.log")
+    poison = run("poison", "--faults", f"polish.dispatch:error~{zid}",
+                 "--logFile", poison_log)
+    poison_dumps = flight_dumps(poison_log, "quarantine")
     degraded = run("degraded", "--faults", f"polish.dispatch:error~{zid}",
                    "--degradeQuarantined")
     df = degraded["records"].get(hole, (None,))[0]
@@ -1275,7 +1198,13 @@ def phase_resilience(cli_out) -> dict:
         "degraded": counter(degraded, "ccs_degraded_zmws_total"),
         "degraded_df_record": df is not None and df.tags.get("df") == 1
         and set(df.qual) == {chr(33 + quarantine.DRAFT_QV_CAP)},
-        "degraded_others_differing": differing(degraded, skip=(hole,))}
+        "degraded_others_differing": differing(degraded, skip=(hole,)),
+        "flight_dumps": counter(poison, "ccs_flight_dumps_total",
+                                reason="quarantine"),
+        "flight_dumps_logged": len(poison_dumps),
+        "flight_records_logged": sum(map(len, poison_dumps)),
+        "flight_sources": sorted({r["source"] for dump in poison_dumps
+                                  for r in dump})}
     # (2) transient: one dispatch fails with a transient marker
     transient = run("transient", "--faults",
                     "polish.dispatch:error=transient*1")
@@ -1340,7 +1269,8 @@ def phase_resilience(cli_out) -> dict:
     torch.cuda.reset_peak_memory_stats()
     allocated_before = torch.cuda.memory_allocated()
     try:
-        cap = run("capacity", "--numThreads", "1")
+        cap_log = os.path.join(d, "p11_capacity.log")
+        cap = run("capacity", "--numThreads", "1", "--logFile", cap_log)
     finally:
         tp._polish_split_part = real_part
         torch.cuda.set_per_process_memory_fraction(1.0)
@@ -1362,6 +1292,9 @@ def phase_resilience(cli_out) -> dict:
         "presplit_batches": counter(cap,
                                     "ccs_resource_presplit_batches_total"),
         "ceiling": ceiling, "quarantine_events": cap["events"],
+        "flight_dumps": counter(cap, "ccs_flight_dumps_total",
+                                reason="oom-ceiling"),
+        "flight_dumps_logged": len(flight_dumps(cap_log, "oom-ceiling")),
         "differing": differing(cap)}
     # (5) checkpoint/resume at --chunkSize 16
     whole = run("whole16", chunk=16)
@@ -1433,6 +1366,12 @@ def phase_resilience(cli_out) -> dict:
     require(not p["others_differing"] and p["poison_absent"]
             and "Failed -- Exception thrown,1," in poison["report"]
             and p["quarantined"] == 1, "poison ZMW not quarantined alone")
+    require(p["flight_dumps"] >= 1 and p["flight_dumps_logged"] >= 1
+            and p["flight_records_logged"] >= 1
+            and p["flight_sources"] == ["device"],
+            "no flight-recorder dump of device rounds on the quarantine")
+    require(c["flight_dumps"] == 1 and c["flight_dumps_logged"] == 1,
+            "no flight-recorder dump on the OOM ceiling")
     require(p["degraded_df_record"] and p["degraded"] == 1
             and not p["degraded_others_differing"], "draft-only degradation")
     require(tr["retries"] == 1 and not tr["differing"], "transient retry")
@@ -1459,6 +1398,140 @@ def phase_resilience(cli_out) -> dict:
               traced):
         require(r["launches"]["arrow_fill"] > 0
                 and r["launches"]["dense_score"] > 0, "K1 or K3 not launched")
+    return out
+
+
+#: the tolerance of score_read / score_read_quiver on the card against the
+#: CPU: the fills' contract on a log-likelihood (fwdbwd_pallas.py:45-47)
+SCORE_ATOL = 1e-4
+
+
+def phase_ledger(chunks, truths, cli_out) -> dict:
+    """The CLI of phase 10 with --perfLedger on the card: its record held
+    against the run's registry window and the roofline cards of the
+    run's setups, `ccs roofline` over the ledger and the cards; then
+    score_read (K1) and score_read_quiver (K2) of one 2 kb read on the
+    card against the CPU."""
+    import contextlib
+    import io
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch.models.quiver.features import flat_default_features
+    from pbccs_tpu_torch.models.readscorer import (score_read,
+                                                   score_read_quiver)
+    from pbccs_tpu_torch.obs import roofline
+    from pbccs_tpu_torch.obs.ledger import (LEDGER_FIELDS, read_ledger,
+                                            run_record)
+    from pbccs_tpu_torch.obs.metrics import default_registry
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "cli_smoke")
+    in_bam, out_bam = (os.path.join(d, "subreads.bam"),
+                       os.path.join(d, "p12_ledger.bam"))
+    ledger = os.path.join(d, "p12_ledger.ndjson")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    setups = []
+    real_setup = BatchPolisher._setup
+
+    def setup(self):
+        setups.append((self._Imax, self._Jmax, self._R, self._Z))
+        return real_setup(self)
+
+    torch.cuda.synchronize()
+    _zero_launch_counts()
+    scope = default_registry().scope()
+    BatchPolisher._setup = setup
+    t0 = time.monotonic()
+    try:
+        rc = cli.run([out_bam, in_bam, "--chunkSize", str(CLI_CHUNK),
+                      "--reportFile", os.path.join(d, "p12_ledger.csv"),
+                      "--logLevel", "WARN", "--perfLedger", ledger])
+        torch.cuda.synchronize()
+    finally:
+        BatchPolisher._setup = real_setup
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    records, skipped = read_ledger(ledger)
+    rec = records[0] if len(records) == 1 and not skipped else {}
+    # the same record built from this script's window around the run
+    window = run_record(scope, kind="batch_run", source="ccs",
+                        device="cuda")
+    gated = [k for k, c in LEDGER_FIELDS.items()
+             if c in ("counter", "compile", "ratio") and k in window]
+    cards = roofline.tracker()
+    want_flops = sum(cards.card(roofline.bucket_label(i, j, r)).flops_for(z)
+                     for i, j, r, z in setups)
+
+    def roofline_cmd(*args):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            try:
+                code = cli.run(["roofline", *args])
+            except SystemExit as e:
+                code = e.code
+        return code, buf.getvalue().strip().splitlines()
+
+    rl_ledger = roofline_cmd("--ledger", ledger)
+    rl_cards = roofline_cmd("--cards", roofline.cards_path())
+
+    # one 2 kb forward-strand read of the draw against its true template
+    read, tpl, snr = chunks[0].reads[0].seq, truths[0], chunks[0].snr
+    scores = {}
+    for name, fn, args in (
+            ("score_read", score_read, (read, tpl, snr)),
+            ("score_read_quiver", score_read_quiver,
+             (flat_default_features(read), tpl))):
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t1 = time.monotonic()
+        card = fn(*args, device="cuda")
+        t2 = time.monotonic()
+        on_card = _launch_counts()
+        cpu = fn(*args, device="cpu")
+        scores[name] = {"cuda": card, "cpu": cpu, "abs_err": abs(card - cpu),
+                        "cuda_s": t2 - t1, "cpu_s": time.monotonic() - t2,
+                        "launches": on_card}
+    out = {"phase": "ledger", "exit_code": rc, "wall_s": wall,
+           "phase10_wall_s": cli_out["wall_s"], "launches": launches,
+           "same_bam_as_phase10": open(out_bam, "rb").read()
+           == open(os.path.join(d, "ccs.bam"), "rb").read(),
+           "records": len(records), "skipped_lines": skipped,
+           "record": rec,
+           "differing_from_window": {k: [rec.get(k), window[k]]
+                                     for k in gated
+                                     if rec.get(k) != window[k]},
+           "setups": setups, "cards_flops": want_flops,
+           "roofline_ledger": rl_ledger, "roofline_cards": rl_cards,
+           "scores": scores, "score_atol": SCORE_ATOL}
+    emit(out)
+
+    def require(ok, what):
+        if not ok:
+            raise AssertionError(f"ledger: {what}")
+
+    require(rc == 0 and rec, "no single batch_run record")
+    require(rec.get("platform") == "gpu"
+            and rec.get("torch_version") == torch.__version__
+            and "jax_version" not in rec, "record's platform or version")
+    require(not out["differing_from_window"],
+            "record's counters differ from the run's registry window")
+    require(rec.get("roofline_flops") == want_flops > 0,
+            "roofline_flops is not the cards' charge of the run's setups")
+    require(0 < rec.get("roofline_efficiency", 0) <= 1,
+            "roofline_efficiency outside (0, 1]")
+    require(rl_ledger[0] == 0 and rl_cards[0] == 0,
+            "ccs roofline --ledger / --cards failed")
+    require(launches["arrow_fill"] > 0 and launches["dense_score"] > 0
+            and out["same_bam_as_phase10"],
+            "the ledger run's kernels or records")
+    sr, sq = scores["score_read"], scores["score_read_quiver"]
+    require(sr["abs_err"] <= SCORE_ATOL and sr["launches"]["arrow_fill"] > 0,
+            "score_read on the card")
+    require(sq["abs_err"] <= SCORE_ATOL and sq["launches"]["quiver_fill"] > 0,
+            "score_read_quiver on the card")
     return out
 
 
@@ -1493,6 +1566,7 @@ def main() -> int:
     phase_serial(chunks[:N_SERIAL], truths[:N_SERIAL], main_tally)
     cli_out = phase_cli(chunks, truths, main_path)
     phase_resilience(cli_out)
+    phase_ledger(chunks, truths, cli_out)
 
     # K1's launch on the main path: alpha and beta together at the
     # schedule's W

@@ -13,13 +13,15 @@ one that pbccs_tpu's parser defines, with the same meaning: fault
 injection (--faults, --faultSeed), the dispatch watchdog
 (--polishTimeout), the per-chunk checkpoint journal (--checkpoint,
 --resume), span tracing (--trace-out), a torch.profiler capture
-(--profile-dir) and --memBudget (checked, then ignored as in pbccs_tpu's
-single-device form).  Every run ends with the `run metrics:` table of
-its registry window.  Left out: the subcommands (serve, router, fleet,
-warmup, tune, analyze, top, roofline) and the flags of tiers the port
-does not have (the device fleet's --devices, --prepareWorkers and
---schedPolicy, the perf ledger's --perfLedger and tuned profiles'
---tuneProfile) -- argparse rejects each of them.
+(--profile-dir), the perf ledger (--perfLedger: one `batch_run` record
+per run, obs/ledger.py) and --memBudget (checked, then ignored as in
+pbccs_tpu's single-device form).  Every run ends with the `run metrics:`
+table of its registry window.  `ccs roofline` (obs/roofline.py) renders
+the roofline cards or a ledger's roofline fields.  Left out: the other
+subcommands (serve, router, fleet, warmup, tune, analyze, top) and the
+flags of tiers the port does not have (the device fleet's --devices,
+--prepareWorkers and --schedPolicy, and tuned profiles' --tuneProfile)
+-- argparse rejects each of them.
 
 `run(argv, device=...)` is the in-process entry: the polish runs on the
 card unless `device` names another (the tests pass device="cpu").  The
@@ -181,6 +183,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "JSON.")
     p.add_argument("--reportFile", default="ccs_report.csv",
                    help="Where to write the yield report. Default = %(default)s")
+    p.add_argument("--perfLedger", default=None, metavar="PATH",
+                   help="Append one schema-versioned NDJSON performance "
+                        "record for this run (obs/ledger.py) to PATH: "
+                        "refine/padding counters, wall time, peak RSS, "
+                        "governor interventions, roofline work -- the "
+                        "record tools/perf_gate.py defends baselines "
+                        "against. Default: off.")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="Journal completed chunks to FILE (NDJSON) so a "
                         "killed run can restart with --resume. Default: "
@@ -344,6 +353,11 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
     """The `ccs` batch command; returns the exit code (2 on a usage
     error, 1 on an output failure)."""
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "roofline":
+        # `ccs roofline`: per-bucket counted bound vs measured report
+        from pbccs_tpu_torch.obs.roofline import run_roofline
+
+        return run_roofline(argv[1:])
     args = build_parser().parse_args(argv)
     with apply_resilience_args(args):
         return _run(args, device)
@@ -414,6 +428,21 @@ def _run(args, device) -> int:
     log.info(f"run summary: {tally.total} ZMWs in "
              f"{time.monotonic() - t0:.3f} s on {dev} [{counts}]")
     log.info("run metrics:\n" + default_registry().summary_table(run_window))
+    if args.perfLedger:
+        # one perf-ledger record per run: the registry deltas over this
+        # run's window + what only the driver knows (wall, yield)
+        from pbccs_tpu_torch.obs.ledger import PerfLedger, run_record
+
+        ledger = PerfLedger(args.perfLedger, logger=log)
+        ledger.append(run_record(
+            run_window, kind="batch_run", source="ccs",
+            workload={"files": [os.path.basename(f) for f in files],
+                      "chunk_size": args.chunkSize, "devices": 1,
+                      "model": args.model},
+            wall_s=time.monotonic() - t0, zmws=tally.total,
+            results=len(tally.results), device=dev))
+        ledger.close()
+        log.info(f"perf ledger record appended to {args.perfLedger}")
     log.flush()
     return 0
 

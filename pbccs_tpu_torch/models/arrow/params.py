@@ -126,6 +126,14 @@ class ModelParams:
 
     pr_miscall: float = MISMATCH_PROBABILITY
 
+    @property
+    def pr_not_miscall(self) -> float:
+        return 1.0 - self.pr_miscall
+
+    @property
+    def pr_third_of_miscall(self) -> float:
+        return self.pr_miscall / 3.0
+
 
 @dataclasses.dataclass(frozen=True)
 class BandingOptions:

@@ -1,7 +1,8 @@
-"""Observability of the port: metrics, trace spans and profiling hooks.
+"""Observability of the port: metrics, trace spans, profiling hooks, the
+perf ledger, the flight recorder and the roofline plane.
 
-Ports of pbccs_tpu.obs's metrics, trace and profiling modules, host-side
-and with the same metric and span names:
+Ports of pbccs_tpu.obs's modules, host-side and with the same metric,
+span and ledger field names:
 
   * obs.metrics -- a thread-safe MetricsRegistry (counters, gauges,
     histograms with fixed log-scale buckets) with Prometheus text
@@ -11,9 +12,14 @@ and with the same metric and span names:
     emit) with wall vs device-wait attribution, exported as
     Chrome-trace/Perfetto JSON (`--trace-out`);
   * obs.profiling -- the opt-in torch.profiler capture
-    (`--profile-dir`).
+    (`--profile-dir`);
+  * obs.ledger -- the schema-versioned NDJSON per-run record
+    (`--perfLedger`) that tools/perf_gate.py reads;
+  * obs.flight -- the refine loop's per-round flight recorder, dumped
+    on a quarantine and on a memory-governor ceiling;
+  * obs.roofline -- kernel work counted from the shapes, per-bucket
+    cost cards, charging and efficiency gauges (`ccs roofline`).
 
-Not ported yet: the perf ledger, the flight recorder, the HTTP scrape
-endpoint, the fleet console, the roofline report and the metrics
-federation helpers.
+Not ported yet (they serve the serving tier): the HTTP scrape endpoint,
+the fleet console and the metrics federation helpers.
 """

@@ -15,9 +15,17 @@ A failed build, load or launch raises KernelError, and a wrapper that
 refuses its arguments before a launch (dtype, shape, alignment, a band
 width that was not built) raises LaunchRefused, a KernelError: both are
 faults of the card or of the program, never of one ZMW's data (the
-pipeline re-raises them instead of isolating a poison ZMW).  Each wrapper counts its launches
-in a `launches` attribute through `count_launch`, under one lock, since
-the CLI's worker threads launch concurrently."""
+pipeline re-raises them instead of isolating a poison ZMW).  Each
+wrapper counts its launches in a `launches` attribute through
+`count_launch`, under one lock, since the CLI's worker threads launch
+concurrently.
+
+build/kernels/ is the port's persistent compile cache, so its events are
+counted under pbccs_tpu's compile-cache metric names (the perf ledger's
+`compile` class): ``ccs_compiles_total`` once per nvcc build, and
+``ccs_compile_cache_events_total{kind}`` once per library `load` first
+asks for in a process -- a hit when a fresh library is already on disk,
+a miss when it has to be built."""
 
 from __future__ import annotations
 
@@ -28,6 +36,8 @@ import shutil
 import subprocess
 import threading
 import time
+
+from pbccs_tpu_torch.obs.metrics import default_registry
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -47,6 +57,12 @@ KERNELS = ("arrow_fill", "quiver_fill", "dense_score")
 _lock = threading.Lock()
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+_reg = default_registry()
+_m_compiles = _reg.counter("ccs_compiles_total",
+                           "Kernel library builds (nvcc) by this process")
+_m_cache = {kind: _reg.counter("ccs_compile_cache_events_total",
+                               "Kernel build-cache lookups by outcome",
+                               kind=kind) for kind in ("hit", "miss")}
 #: per-kernel build record: seconds, nvcc/ptxas output (filled by builds)
 BUILD_LOG: dict[str, dict] = {}
 
@@ -97,6 +113,7 @@ def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
     for name in todo:
         src, lib = _paths(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
+        _m_compiles.inc()
         procs[name] = (subprocess.Popen(
             [nvcc, *NVCC_FLAGS, "-o", tmp, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
@@ -121,6 +138,7 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
+            _m_cache["miss" if _stale(name) else "hit"].inc()
             build([name])
             try:
                 lib = ctypes.CDLL(_paths(name)[1])

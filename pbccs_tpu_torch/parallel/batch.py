@@ -8,11 +8,17 @@ selection semantics are those of the JAX package's device loop
 (favorability floor, greedy well-separated subset, template-hash cycle
 trim); converged ZMWs drop out of the mutation workload.
 
-Left out of the port (TPU or fleet devices): the mesh, the roofline
-plane, the flight recorder, the straggler continuation and prebake
-adoption.  The JAX package's host refinement loop is not ported: the
-device loop handles the two cases the JAX device loop bails to it for
-(tiny read windows, a template outgrowing its bucket) itself."""
+Observability as in the JAX package: bucket fill counters and
+histograms, the flight recorder's per-round records (rebuilt from the
+device loop's fetched iteration counts) and the roofline plane's card,
+charge and refine scope (obs/roofline.py; the card is counted from the
+shapes).
+
+Left out of the port (TPU or fleet devices): the mesh, the straggler
+continuation and prebake adoption.  The JAX package's host refinement
+loop is not ported: the device loop handles the two cases the JAX device
+loop bails to it for (tiny read windows, a template outgrowing its
+bucket) itself."""
 
 from __future__ import annotations
 
@@ -43,8 +49,30 @@ from pbccs_tpu_torch.models.arrow.scorer import (
     mated_mask,
     oriented_window,
 )
+from pbccs_tpu_torch.obs import flight as obs_flight
+from pbccs_tpu_torch.obs import roofline as obs_roofline
+from pbccs_tpu_torch.obs.metrics import default_registry, log_buckets
 from pbccs_tpu_torch.parallel import device_refine as dr
 from pbccs_tpu_torch.runtime.timing import device_fetch
+
+# bucket fill / padding-waste observability: padding of the (Z, R) axes is
+# real device work, so the fill ratios say how much of a batch's work
+# polishes actual reads
+_reg = default_registry()
+_m_polishes = _reg.counter("ccs_batch_polishes_total",
+                           "BatchPolisher batches constructed")
+_m_zmw_slots = _reg.counter("ccs_batch_slots_total",
+                            "Padded batch slots by axis", axis="zmw")
+_m_zmw_used = _reg.counter("ccs_batch_slots_used_total",
+                           "Occupied batch slots by axis", axis="zmw")
+_m_read_slots = _reg.counter("ccs_batch_slots_total", axis="read")
+_m_read_used = _reg.counter("ccs_batch_slots_used_total", axis="read")
+_FILL_BUCKETS = log_buckets(0.0625, 1.0, 2.0)
+_m_zmw_fill = _reg.histogram("ccs_batch_fill_ratio",
+                             "Used/padded slot ratio per batch by axis",
+                             buckets=_FILL_BUCKETS, axis="zmw")
+_m_read_fill = _reg.histogram("ccs_batch_fill_ratio",
+                              buckets=_FILL_BUCKETS, axis="read")
 
 # windows shorter than this cannot have their boundary mutations scored
 # by the window-frame edge program (its two regimes would overlap)
@@ -255,6 +283,25 @@ class BatchPolisher:
         self._host_tables = pb.host_tables
         self._stats_host = None   # lazily fetched AddRead statistics
         self._qv_cache = None     # (skip set, (Z, Jmax) QVs) of the last loop
+
+        Z, R = self._Z, self._R
+        n_reads_real = int(self._real_rows.sum())
+        _m_polishes.inc()
+        _m_zmw_slots.inc(Z)
+        _m_zmw_used.inc(self.n_zmws)
+        _m_read_slots.inc(Z * R)
+        _m_read_used.inc(n_reads_real)
+        _m_zmw_fill.observe(self.n_zmws / Z)
+        _m_read_fill.observe(n_reads_real / (Z * R))
+        # flight-recorder batch tag: first ZMW id + batch size names the
+        # batch compactly in postmortem dumps
+        self._flight_tag = f"{tasks[0].id}+{self.n_zmws}"
+        # the bucket's roofline card before the first _setup, so its
+        # execution charge finds the card
+        obs_roofline.note_bucket(
+            imax=self._Imax, jmax=self._Jmax, r=self._R, z=self._Z,
+            width=self._W, guided_passes=guided_fill_passes(self._Jmax),
+            device=self.device)
         self._setup()
 
     # --------------------------------------------------- AddRead statistics
@@ -346,6 +393,10 @@ class BatchPolisher:
         s = _batch_setup(tpl, tlens_d, self._tables_dev, self._reads_dev,
                          self._rlens_dev, self._strands_dev, tstarts, tends,
                          self._W, guided_fill_passes(self._Jmax))
+        # charge this execution of the canonical program against the
+        # bucket's card (no-op without one)
+        obs_roofline.charge_execution(imax=self._Imax, jmax=self._Jmax,
+                                      r=self._R, z=self._Z)
         ll_a, ll_b = s.fill.ll_a, s.fill.ll_b
         z32 = (ll_b - s.mu) / torch.sqrt(torch.clamp(s.var, min=1e-12))
         if np.isnan(self.min_zscore):
@@ -417,6 +468,11 @@ class BatchPolisher:
         ZMW indices in `skip` take no part (their RefineResult stays
         non-converged).  A template that outgrows the bucket re-buckets
         the batch (self._Jmax grows)."""
+        with obs_roofline.refine_scope(imax=self._Imax, jmax=self._Jmax,
+                                       r=self._R):
+            return self._refine_impl(opts, skip)
+
+    def _refine_impl(self, opts, skip) -> list[RefineResult]:
         opts = opts or RefineOptions()
         st = self._loop_state(skip)
         dr.run_refine_loop(
@@ -437,6 +493,15 @@ class BatchPolisher:
         for z in range(self.n_zmws):
             self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
         self._qv_cache = (frozenset(skip or ()), qv)
+        # flight recorder: the loop ran on the device with no per-round
+        # fetch, so its rounds are rebuilt from the fetched iteration
+        # counts -- a ZMW with k iterations was live in rounds 0..k-1,
+        # exact for the lockstep loop
+        iters = h[: self.n_zmws, 2]
+        for rnd in range(int(iters.max(initial=0))):
+            obs_flight.record_round(self._flight_tag, rnd,
+                                    int((iters > rnd).sum()), self.n_zmws,
+                                    self._Z, source="device")
         return [RefineResult(converged=bool(h[z, 1]), n_tested=int(h[z, 3]),
                              n_applied=int(h[z, 4]), iterations=int(h[z, 2]))
                 for z in range(self.n_zmws)]

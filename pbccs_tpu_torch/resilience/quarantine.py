@@ -1,12 +1,12 @@
 """Poison-ZMW isolation: bisect a failed polish batch, quarantine the
 culprit(s), optionally degrade them to draft-only consensus.
 
-Port of pbccs_tpu.resilience.quarantine (without its flight-recorder
-dump).  The lockstep batch fuses Z ZMWs into one device program, so one
-poison ZMW fails the whole batch.  Bisection isolates k poison ZMWs in
-O(k log Z) re-dispatches; sub-batches are pinned by the caller to the
-parent batch's (Imax, Jmax, R) buckets, so the surviving ZMWs come out
-byte-identical (the band width is a function of the bucket).
+Port of pbccs_tpu.resilience.quarantine.  The lockstep batch fuses Z
+ZMWs into one device program, so one poison ZMW fails the whole batch.
+Bisection isolates k poison ZMWs in O(k log Z) re-dispatches;
+sub-batches are pinned by the caller to the parent batch's (Imax, Jmax,
+R) buckets, so the surviving ZMWs come out byte-identical (the band
+width is a function of the bucket).
 
 A singleton whose own pinned dispatch fails gets one serial-pipeline
 rescue (the per-ZMW ArrowMultiReadScorer path, under the watchdog
@@ -120,10 +120,14 @@ def degrade_to_draft(prep, settings):
 def quarantine_outcome(prep, settings, exc: BaseException):
     """The terminal outcome for a ZMW whose batch AND serial polishes
     failed: draft-only degradation when enabled, else Failure.OTHER."""
+    from pbccs_tpu_torch.obs import flight
     from pbccs_tpu_torch.pipeline import Failure
 
     _m["quarantined"].inc()
     log = Logger.default()
+    # postmortem: what the refine loops were doing just before this ZMW
+    # went terminal
+    flight.dump("quarantine", log)
     if getattr(settings, "degrade_quarantined", False):
         try:
             outcome = degrade_to_draft(prep, settings)

@@ -208,9 +208,15 @@ class MemoryGovernor:
             ceiling = min(old, new) if old is not None else new
             per_dev[device] = ceiling
         _m_ceilings.inc()
-        Logger.default().warn(
+        log = Logger.default()
+        log.warn(
             f"memory governor: capacity failure at Z={z} on {device} "
             f"(bucket {bucket!r}); ceiling -> {ceiling}")
+        # capacity-split postmortem: the refine-loop flight record just
+        # before the device ran out (obs.flight ring buffer)
+        from pbccs_tpu_torch.obs import flight
+
+        flight.dump("oom-ceiling", log)
         return ceiling
 
     def cap(self, bucket: Hashable, device: str | None = None

@@ -102,6 +102,11 @@ def window() -> _metrics.MeasurementScope:
     return _registry.scope()
 
 
+def device_wait_seconds(win: _metrics.MeasurementScope) -> float:
+    """Seconds the host blocked in device fetches over the window."""
+    return win.counter_value(DEVICE_WAIT_SECONDS)
+
+
 def stage_seconds(win: _metrics.MeasurementScope) -> dict[str, float]:
     """Per-stage accumulated THREAD time over the window.  With
     overlapped workers the stages can sum past wall time."""

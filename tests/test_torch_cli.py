@@ -188,8 +188,7 @@ def test_missing_input_exits_2(tmp_path):
 
 
 UNPORTED = [["--devices", "2"], ["--prepareWorkers", "2"],
-            ["--schedPolicy", "sticky"], ["--perfLedger", "l.ndjson"],
-            ["--tuneProfile", "auto"]]
+            ["--schedPolicy", "sticky"], ["--tuneProfile", "auto"]]
 
 
 @pytest.mark.parametrize("flag", UNPORTED, ids=lambda f: f[0])
@@ -292,11 +291,20 @@ def test_ported_flags_are_accepted_and_act(cases, tmp_path, monkeypatch,
 
 
 @pytest.mark.parametrize("sub", ["serve", "router", "fleet", "warmup",
-                                 "tune", "analyze", "top", "roofline"])
+                                 "tune", "analyze", "top"])
 def test_subcommands_are_not_ported(sub):
     with pytest.raises(SystemExit) as e:
         run([sub], device="cpu")
     assert e.value.code == 2
+
+
+def test_roofline_target_exits_2(capsys):
+    """`ccs roofline` is ported; its --target reads a serve replica's
+    status verb, and the serving tier is not."""
+    with pytest.raises(SystemExit) as e:
+        run(["roofline", "--target", "127.0.0.1:1"], device="cpu")
+    assert e.value.code == 2
+    assert "serving tier" in capsys.readouterr().err
 
 
 def test_module_entry_point():

@@ -14,7 +14,7 @@ within 1e-6 relative, torch's log against the kernel's logf); dense
 interior scores (K3) within 1e-6 relative (the same association and
 band-sum order, so bitwise is expected; torch's log against logf); the
 card's process_chunks agrees with the CPU's on the consensus and within
-1 QV."""
+1 QV; the read scorers' log-likelihoods within 1e-4 absolute."""
 
 import inspect
 
@@ -550,3 +550,25 @@ def test_watchdog_worker_launches_on_the_callers_stream(cuda):
     assert fc.arrow_fill.launches == before + 1
     for g, w in zip(got, want):
         _assert_same_fill(g, w)
+
+
+@pytest.mark.parametrize("quiver", [False, True])
+def test_read_scorers_card_match_cpu(cuda, quiver):
+    """score_read launches K1 and score_read_quiver K2 once on the card;
+    each log-likelihood agrees with the CPU's (the plain version) within
+    1e-4 absolute, the fills' contract."""
+    from pbccs_tpu_torch.models.quiver.features import flat_default_features
+    from pbccs_tpu_torch.models.readscorer import (score_read,
+                                                   score_read_quiver)
+    from pbccs_tpu_torch.ops import quiver_fill_cuda as qk
+
+    tpl, reads, _, snr = simulate_zmw(np.random.default_rng(8), 500, 2)
+    fn, args, kernel = ((score_read_quiver,
+                         (flat_default_features(reads[0]), tpl),
+                         qk.quiver_fill) if quiver
+                        else (score_read, (reads[0], tpl, snr),
+                              fc.arrow_fill))
+    before = kernel.launches
+    got = fn(*args, device=cuda)
+    assert kernel.launches == before + 1
+    assert abs(got - fn(*args, device="cpu")) <= 1e-4
