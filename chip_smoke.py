@@ -115,7 +115,35 @@ script exits non-zero):
      <= 1, the BAM byte-equal to phase 10's; `ccs roofline --ledger` and
      `--cards` exit 0; then score_read (K1) and score_read_quiver (K2) of
      one 2 kb read on the card against the CPU within SCORE_ATOL, their
-     launches counted.
+     launches counted;
+ 13. fleet: the CLI of phase 10 on the same BAM through the device fleet
+     (`--devices 0`: one worker, cuda:0, prepare threads drafting the
+     next batch while the card polishes) at --prepareWorkers 1, 2 and 4,
+     counters zeroed and the registry windowed around each run: records,
+     .pbi holes and report byte-equal to phase 10's, K1 and K3 launched
+     as often as in phase 10, ccs_sched_batches_total 2 and
+     ccs_sched_tasks_total{device="cuda:0"} 2, no quarantine; each wall,
+     the summed prepare, dispatch and polish stage seconds and the peak
+     device memory beside phase 10's default and one-worker walls; then
+     `--faults sched.dispatch:oom@1*1` (one capacity requeue on cuda:0,
+     one OOM split, records byte-equal), a --memBudget of one batch's
+     premarshal_nbytes (at least one throttle, records byte-equal),
+     `ccs warmup --bucket 32x10x2000` in a fresh process (one `warmed`
+     entry on cuda:0 with its shapes and cost card) between two fresh
+     `ccs` processes on the BAM before it and two after it (each BAM
+     byte-equal to phase 10's; each wall and its first batch's latency,
+     the end of the first polish span from the run's start, read from
+     its --trace-out), and one --perfLedger record (sched_batches 2,
+     platform gpu);
+ 14. tune: `ccs tune` on the card in a fresh process (8 ZMWs, 3 passes,
+     300 bp, --knobs prepare_workers, --tuneBudget 90): exit 0, the
+     journal holding the defaults run and each candidate, and a shipped
+     profile naming this card's device_kind and torch_version or the
+     summary's "nothing to ship"; then a profile for this card with
+     prepare_workers 2, written by tune.profile.save_profile and applied
+     to phase 13's fleet run with --tuneProfile and --perfLedger: its
+     record's tuned_profile the profile's id, its records byte-equal to
+     phase 10's.
 Then the card's name and power limit, the kernel table as one JSON
 line, and as the last line {"ok": true, "device": {...}}.
 
@@ -1275,8 +1303,8 @@ def phase_resilience(cli_out) -> dict:
         tp._polish_split_part = real_part
         torch.cuda.set_per_process_memory_fraction(1.0)
     ceiling = resources.default_governor().cap(
-        resources.shape_bucket(*pins[0]), device="cuda")
-    resources.default_governor().reset_device("cuda")
+        resources.shape_bucket(*pins[0]), device="cuda:0")
+    resources.default_governor().reset_device("cuda:0")
     out["capacity"] = {
         "pins": pins, "half_reserved_peak": half,
         "full_reserved_peak": full, "limit_bytes": limit,
@@ -1535,6 +1563,308 @@ def phase_ledger(chunks, truths, cli_out) -> dict:
     return out
 
 
+#: the --prepareWorkers counts phase 13 runs the fleet at
+FLEET_PREPARE = (1, 2, 4)
+#: the bucket phase 13's `ccs warmup` drives: a batch of the main path
+WARMUP_BUCKET = "32x10x2000"
+#: phase 14's `ccs tune`: calibration geometry and wall-clock budget
+TUNE_ARGS = ("--zmws", "8", "--passes", "3", "--tplLen", "300",
+             "--chunkSize", "8", "--repeat", "1", "--knobs",
+             "prepare_workers", "--tuneBudget", "90")
+TUNE_PROFILE_KNOBS = {"prepare_workers": 2}
+
+
+def _fleet_harness(cli_out):
+    """A runner of phase 10's CLI on the same BAM through the device
+    fleet (`--devices 0`), each run's counters, stage seconds, launches
+    and peak memory read, its BAM, .pbi and report held against phase
+    10's."""
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch.io.bam import BamReader, encode_record
+    from pbccs_tpu_torch.io.pbi import PbiIndex
+    from pbccs_tpu_torch.obs.metrics import default_registry
+    from pbccs_tpu_torch.resilience import quarantine
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "cli_smoke")
+    in_bam, ref_bam = (os.path.join(d, "subreads.bam"),
+                       os.path.join(d, "ccs.bam"))
+
+    def read(bam):
+        with BamReader(bam) as r:
+            return [encode_record(rec) for rec in r]
+
+    ref = {"records": read(ref_bam),
+           "holes": [int(h) for h in PbiIndex(ref_bam + ".pbi").holes],
+           "report": open(os.path.join(d, "ccs_report.csv")).read()}
+    reg = default_registry()
+
+    def run(name, *extra):
+        out = os.path.join(d, f"fleet_{name}.bam")
+        report = os.path.join(d, f"fleet_{name}.csv")
+        quarantine.reset_event_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _zero_launch_counts()
+        scope = reg.scope()
+        t0 = time.monotonic()
+        rc = cli.run([out, in_bam, "--chunkSize", str(CLI_CHUNK),
+                      "--reportFile", report, "--logLevel", "WARN",
+                      "--devices", "0", *extra])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        delta = scope.delta()
+
+        def counter(metric, **labels):
+            key = (metric, tuple(sorted((k, str(v))
+                                        for k, v in labels.items())))
+            return float(delta.get(key, 0.0))
+
+        stages = {stage: delta.get(("ccs_sched_stage_latency_seconds",
+                                    (("stage", stage),)), ((), 0.0, 0))[1]
+                  for stage in ("prepare", "dispatch", "polish")}
+        got = {"name": name, "exit_code": rc, "wall_s": wall,
+               "launches": _launch_counts(),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "stage_s": stages,
+               "sched_batches": counter("ccs_sched_batches_total"),
+               "tasks_cuda0": counter("ccs_sched_tasks_total",
+                                      device="cuda:0"),
+               "requeues": counter("ccs_sched_requeues_total"),
+               "oom_splits": counter("ccs_resource_oom_splits_total"),
+               "presplit_batches": counter(
+                   "ccs_resource_presplit_batches_total"),
+               "budget_throttles": counter("ccs_resource_throttles_total",
+                                           site="sched.prepare"),
+               "quarantine_events": _quarantine_events()}
+        if rc == 0:
+            got.update({
+                "same_records": read(out) == ref["records"],
+                "same_pbi_holes": [int(h) for h in PbiIndex(
+                    out + ".pbi").holes] == ref["holes"],
+                "same_report": open(report).read() == ref["report"]})
+        return got
+
+    def require(r, what_launches=True):
+        ok = (r["exit_code"] == 0 and r.get("same_records")
+              and r.get("same_pbi_holes") and r.get("same_report")
+              and r["sched_batches"] == 2 and r["tasks_cuda0"] == 2)
+        if not ok:
+            raise AssertionError(f"fleet {r['name']}: exit code, records, "
+                                 f".pbi, report or scheduler counts: {r}")
+        _check_no_quarantine(f"fleet {r['name']}", r["quarantine_events"])
+        if what_launches and any(
+                r["launches"][k] != cli_out["launches"][k]
+                for k in ("arrow_fill", "dense_score")):
+            raise AssertionError(f"fleet {r['name']}: launches "
+                                 f"{r['launches']} against phase 10's "
+                                 f"{cli_out['launches']}")
+
+    return run, require, in_bam
+
+
+def _fresh_ccs(tag, in_bam) -> dict:
+    """Phase 10's CLI run in a fresh process with --trace-out: its wall,
+    its first batch's latency (the end of the first polish span, from
+    the tracer's origin at the run's start) and that batch's setup span;
+    its BAM must be byte-equal to phase 10's."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    d = os.path.join(root, "build", "cli_smoke")
+    out, trace = (os.path.join(d, f"fresh_{tag}.bam"),
+                  os.path.join(d, f"fresh_{tag}.trace.json"))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", out, in_bam,
+         "--chunkSize", str(CLI_CHUNK), "--logLevel", "WARN",
+         "--trace-out", trace],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.monotonic() - t0
+    if proc.returncode != 0 or open(out, "rb").read() != open(
+            os.path.join(d, "ccs.bam"), "rb").read():
+        raise AssertionError(f"fresh ccs {tag}: exit code "
+                             f"{proc.returncode} or a BAM unlike phase "
+                             f"10's: {proc.stderr[-2000:]}")
+    with open(trace) as fh:
+        events = json.load(fh)["traceEvents"]
+    first = min((e for e in events if e["name"] == "polish"),
+                key=lambda e: e["ts"] + e["dur"])
+    setup = [e for e in events if e["name"] == "polish.setup"
+             and first["ts"] <= e["ts"] <= first["ts"] + first["dur"]]
+    return {"run": tag, "wall_s": wall,
+            "first_batch_s": (first["ts"] + first["dur"]) / 1e6,
+            "first_polish_s": first["dur"] / 1e6,
+            "first_setup_s": setup[0]["dur"] / 1e6 if setup else None}
+
+
+def phase_fleet(cli_out) -> dict:
+    """Phase 10's CLI through the device fleet on the card at
+    --prepareWorkers 1, 2 and 4, under an injected OOM at the scheduler's
+    dispatch and under a --memBudget of one batch, `ccs warmup` in a
+    fresh process, and one --perfLedger record."""
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.obs.ledger import read_ledger
+    from pbccs_tpu_torch.parallel.batch import premarshal_nbytes
+    from pbccs_tpu_torch.resilience import resources
+    from pbccs_tpu_torch.runtime.logging import Logger
+    from pbccs_tpu_torch.runtime.whitelist import Whitelist
+
+    run, require, in_bam = _fleet_harness(cli_out)
+    out = {"phase": "fleet", "card": card_line(),
+           "phase10_wall_s": cli_out["wall_s"],
+           "phase10_one_worker_wall_s": cli_out["one_worker_wall_s"],
+           "phase10_max_memory_allocated": cli_out["max_memory_allocated"],
+           "phase10_launches": cli_out["launches"], "runs": []}
+    for n in FLEET_PREPARE:
+        r = run(f"prepare{n}", "--prepareWorkers", str(n))
+        out["runs"].append(r)
+        require(r)
+    # one OOM at the scheduler's dispatch: a capacity requeue to cuda:0,
+    # whose polish pre-splits at the learned ceiling
+    oom = run("oom", "--prepareWorkers", "2", "--faults",
+              "sched.dispatch:oom@1*1")
+    resources.default_governor().reset_device("cuda:0")
+    out["oom"] = oom
+    require(oom, what_launches=False)
+    if oom["requeues"] != 1 or oom["oom_splits"] != 1:
+        raise AssertionError(f"fleet oom: requeues {oom['requeues']}, "
+                             f"OOM splits {oom['oom_splits']}")
+    # a host budget of one batch's marshalled bytes
+    args = cli.build_parser().parse_args(["x.bam", in_bam, "--chunkSize",
+                                          str(CLI_CHUNK)])
+    first = next(cli.gated_chunks([in_bam], Whitelist("all"), args,
+                                  Logger.default(), tp.ResultTally()))
+    preps = tp.prepare_batch(first)[1]
+    nbytes = premarshal_nbytes((*tp._pinned_batch_shapes(preps, None),
+                                len(preps)))
+    del preps
+    budget = run("budget", "--prepareWorkers", "2", "--memBudget",
+                 str(nbytes))
+    budget["mem_budget"] = nbytes
+    out["budget"] = budget
+    require(budget)
+    if budget["budget_throttles"] < 1:
+        raise AssertionError("fleet budget: the prepare threads never "
+                             "throttled")
+    # `ccs warmup` in a fresh process, between fresh `ccs` processes:
+    # what of the warmup survives into a later process's first batch
+    fresh = [_fresh_ccs(f"cold{i}", in_bam) for i in (1, 2)]
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", "warmup", "--bucket",
+         WARMUP_BUCKET, "--logLevel", "WARN"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600)
+    report = None
+    if proc.returncode == 0:
+        report = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["warmup"] = {"exit_code": proc.returncode,
+                     "wall_s": time.monotonic() - t0, "report": report,
+                     "stderr_tail": proc.stderr[-2000:]}
+    entries = (report or {}).get("warmed", [])
+    if proc.returncode != 0 or len(entries) != 1 \
+            or entries[0]["device"] != "cuda:0" \
+            or entries[0]["bucket"] != WARMUP_BUCKET \
+            or not entries[0].get("shapes") \
+            or not entries[0].get("cost_card"):
+        raise AssertionError(f"ccs warmup: {out['warmup']}")
+    fresh += [_fresh_ccs(f"warm{i}", in_bam) for i in (1, 2)]
+    out["fresh_ccs"] = fresh
+    # one perf-ledger record of the fleet
+    ledger = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "cli_smoke", "fleet_ledger.ndjson")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    led = run("ledger", "--perfLedger", ledger)
+    records, skipped = read_ledger(ledger)
+    rec = records[0] if len(records) == 1 and not skipped else {}
+    led["record"] = {k: rec.get(k) for k in (
+        "platform", "sched_batches", "workload", "tuned_profile",
+        "wall_s", "zmws_per_sec")}
+    out["ledger"] = led
+    emit(out)
+    require(led)
+    if rec.get("sched_batches") != 2 or rec.get("platform") != "gpu":
+        raise AssertionError(f"fleet ledger record: {led['record']}")
+    return out
+
+
+def phase_tune(cli_out) -> dict:
+    """`ccs tune`'s batch leg on the card in a fresh process, then a
+    profile for this card applied to phase 10's CLI through the fleet."""
+    import os
+
+    from pbccs_tpu_torch.obs.ledger import read_ledger
+    from pbccs_tpu_torch.tune.profile import (HostProfile, host_fingerprint,
+                                              save_profile)
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    wd = os.path.join(root, "build", "tune_smoke")
+    os.makedirs(wd, exist_ok=True)
+    tuned = os.path.join(wd, "tuned.json")
+    for stale in ("journal.ndjson", "tuned.json"):
+        if os.path.exists(os.path.join(wd, stale)):
+            os.remove(os.path.join(wd, stale))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", "tune", *TUNE_ARGS,
+         "--workdir", wd, "--out", tuned, "--logLevel", "INFO"],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    wall = time.monotonic() - t0
+    summary = None
+    if proc.returncode == 0:
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    journal, _ = read_ledger(os.path.join(wd, "journal.ndjson"))
+    measured = [(j["assignment"], j["ok"], (j.get("measurement") or {}).get(
+        "zmws_per_sec")) for j in journal]
+    host = host_fingerprint()
+    shipped = None
+    if summary and summary.get("shipped"):
+        with open(tuned) as fh:
+            shipped = json.load(fh)
+    out = {"phase": "tune", "card": card_line(), "exit_code": proc.returncode,
+           "wall_s": wall, "summary": summary, "journal": measured,
+           "shipped_fingerprint": shipped and shipped["fingerprint"],
+           "stderr_tail": proc.stderr[-2000:]}
+    want = [{}] + [{"prepare_workers": n} for n in (1, 2, 4)]
+    ok = (proc.returncode == 0 and summary is not None
+          and [a for a, _, _ in measured] == want
+          and all(good for _, good, _ in measured))
+    if ok and shipped is not None:
+        ok = (shipped["fingerprint"]["device_kind"] == host["device_kind"]
+              and shipped["fingerprint"]["torch_version"]
+              == host["torch_version"])
+    elif ok:
+        ok = "nothing to ship" in summary.get("note", "")
+    # a profile for this card, applied to the fleet run of phase 10's CLI
+    profile = HostProfile(fingerprint=host, knobs=dict(TUNE_PROFILE_KNOBS))
+    path = os.path.join(wd, "card.json")
+    save_profile(profile, path)
+    ledger = os.path.join(wd, "applied.ndjson")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    run, require, _ = _fleet_harness(cli_out)
+    applied = run("tuned", "--tuneProfile", path, "--perfLedger", ledger)
+    records, skipped = read_ledger(ledger)
+    rec = records[0] if len(records) == 1 and not skipped else {}
+    applied["tuned_profile"] = rec.get("tuned_profile")
+    out.update(profile_id=profile.profile_id, applied=applied)
+    emit(out)
+    if not ok:
+        raise AssertionError("ccs tune: exit code, journal or profile")
+    require(applied)
+    if rec.get("tuned_profile") != profile.profile_id:
+        raise AssertionError(f"the applied profile's id is not in the "
+                             f"ledger record: {rec.get('tuned_profile')}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1567,6 +1897,8 @@ def main() -> int:
     cli_out = phase_cli(chunks, truths, main_path)
     phase_resilience(cli_out)
     phase_ledger(chunks, truths, cli_out)
+    phase_fleet(cli_out)
+    phase_tune(cli_out)
 
     # K1's launch on the main path: alpha and beta together at the
     # schedule's W

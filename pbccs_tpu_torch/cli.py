@@ -3,30 +3,35 @@
     python -m pbccs_tpu_torch.cli [OPTIONS] OUTPUT FILES...
 
 Reads subreads from BAM (PacBio conventions) or FASTA (records named
-movie/zmw[/s_e], grouped by ZMW), runs the consensus pipeline over a
-bounded ordered work queue on the card, and writes a CCS BAM with its
-.pbi index (or a FASTA) plus a CSV yield report.  Flags, defaults,
-CLI-level filters (whitelist, chemistry, SNR, read score, pass count) and
-output tags mirror the reference `ccs` (reference src/main/ccs.cpp:
-284-519) and pbccs_tpu.cli's single-device WorkQueue form; every flag is
-one that pbccs_tpu's parser defines, with the same meaning: fault
-injection (--faults, --faultSeed), the dispatch watchdog
+movie/zmw[/s_e], grouped by ZMW), runs the consensus pipeline on the
+card, and writes a CCS BAM with its .pbi index (or a FASTA) plus a CSV
+yield report.  Flags, defaults, CLI-level filters (whitelist, chemistry,
+SNR, read score, pass count) and output tags mirror the reference `ccs`
+(reference src/main/ccs.cpp:284-519) and pbccs_tpu.cli's batch form;
+every flag is one that pbccs_tpu's parser defines, with the same
+meaning.  Two drivers: `--devices 1` (the default) is a bounded ordered
+work queue of --numThreads threads, each drafting and polishing its work
+item in turn; any other value is the device fleet (sched/): a pool of
+prepare threads (--prepareWorkers, seeded by --numThreads) drafts and
+marshals batches while one executor thread per card (--devices N, 0 =
+all) polishes earlier ones, routed by --schedPolicy, with --memBudget
+bounding the prepared backlog.  Both write the same output.  Also:
+fault injection (--faults, --faultSeed), the dispatch watchdog
 (--polishTimeout), the per-chunk checkpoint journal (--checkpoint,
 --resume), span tracing (--trace-out), a torch.profiler capture
 (--profile-dir), the perf ledger (--perfLedger: one `batch_run` record
-per run, obs/ledger.py) and --memBudget (checked, then ignored as in
-pbccs_tpu's single-device form).  Every run ends with the `run metrics:`
-table of its registry window.  `ccs roofline` (obs/roofline.py) renders
-the roofline cards or a ledger's roofline fields.  Left out: the other
-subcommands (serve, router, fleet, warmup, tune, analyze, top) and the
-flags of tiers the port does not have (the device fleet's --devices,
---prepareWorkers and --schedPolicy, and tuned profiles' --tuneProfile)
--- argparse rejects each of them.
+per run, obs/ledger.py) and tuned knobs (--tuneProfile, runtime/
+tuning.py).  Every run ends with the `run metrics:` table of its registry
+window.  Subcommands: `ccs roofline` (obs/roofline.py), `ccs warmup`
+(sched/warmup.py) and `ccs tune` (tune/cli.py); the serve tier's (serve,
+router, fleet, top) and `analyze` are left out, and argparse rejects
+them.
 
 `run(argv, device=...)` is the in-process entry: the polish runs on the
-card unless `device` names another (the tests pass device="cpu").  The
-fault injector and watchdog deadline a run arms are restored when it
-returns, so in-process runs do not leak them into each other."""
+card unless `device` names another (the tests pass device="cpu"; with
+--devices N that is N CPU workers).  The fault injector, watchdog
+deadline and tune profile a run arms are restored when it returns, so
+in-process runs do not leak them into each other."""
 
 from __future__ import annotations
 
@@ -163,11 +168,28 @@ def build_parser() -> argparse.ArgumentParser:
                         "movie:1-3,5;movie2:*. Default = %(default)s")
     add_consensus_args(p)
     p.add_argument("--numThreads", type=int, default=0,
-                   help="Number of host pipeline threads (0 = auto). "
-                        "Default = %(default)s")
+                   help="Number of host pipeline threads (0 = auto); with "
+                        "--devices it seeds the prepare pool unless "
+                        "--prepareWorkers is given. Default = %(default)s")
     p.add_argument("--chunkSize", type=int, default=64,
                    help="ZMWs per work item; each work item polishes as one "
                         "lockstep device batch. Default = %(default)s")
+    p.add_argument("--devices", type=int, default=1,
+                   help="Polish across a device fleet (pbccs_tpu_torch."
+                        "sched): N>1 uses the first N CUDA devices, 0 all "
+                        "of them, 1 the single-device WorkQueue driver. "
+                        "Default = %(default)s")
+    p.add_argument("--prepareWorkers", type=int, default=0,
+                   help="Host prepare (POA draft) threads overlapping "
+                        "in-flight device polishes in the scheduled "
+                        "driver (0 = auto; only used with --devices). "
+                        "Default = %(default)s")
+    p.add_argument("--schedPolicy", choices=("sticky", "least", "roundrobin"),
+                   default="sticky",
+                   help="Device-fleet routing: sticky keeps a polish-"
+                        "shape bucket on the device that already ran it "
+                        "(least-loaded otherwise). "
+                        "Default = %(default)s")
     p.add_argument("--logFile", default=None, help="Log to a file vs stderr.")
     p.add_argument("--logLevel", default="INFO",
                    help="TRACE..FATAL. Default = %(default)s")
@@ -190,6 +212,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "governor interventions, roofline work -- the "
                         "record tools/perf_gate.py defends baselines "
                         "against. Default: off.")
+    p.add_argument("--tuneProfile", default=None, metavar="PATH|auto",
+                   help="Apply a `ccs tune` host profile: tuned knob "
+                        "defaults (band width, prepare workers, memory "
+                        "budget) resolved as explicit flag/env > "
+                        "profile > hand-tuned constants.  `auto` scans "
+                        "the profiles/ directory for this host's "
+                        "fingerprint; a mismatched or corrupt profile "
+                        "degrades to defaults with a note "
+                        "(PBCCS_TUNE_PROFILE is the env equivalent). "
+                        "Default: off.")
     p.add_argument("--checkpoint", default=None, metavar="FILE",
                    help="Journal completed chunks to FILE (NDJSON) so a "
                         "killed run can restart with --resume. Default: "
@@ -200,11 +232,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "tally and output are identical to an "
                         "uninterrupted run.")
     p.add_argument("--memBudget", default=None, metavar="SIZE",
-                   help="Host-memory budget for the batch backlog of "
-                        "pbccs_tpu's device-fleet scheduler, e.g. 8G or "
-                        "512M.  Checked here, then ignored: this "
-                        "single-device form is already bounded by "
-                        "--numThreads work items.")
+                   help="Host-memory budget for batch backlog in the "
+                        "fleet driver (--devices != 1), e.g. 8G or "
+                        "512M: the prepare pool throttles (visible as "
+                        "ccs_resource_throttles_total, never a crash) "
+                        "while prepared-batch bytes in flight would "
+                        "exceed it.  Default: unbounded.")
     p.add_argument("--batchFallback", choices=("bisect", "serial"),
                    default="bisect",
                    help="Recovery when a lockstep polish batch fails: "
@@ -358,8 +391,20 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
         from pbccs_tpu_torch.obs.roofline import run_roofline
 
         return run_roofline(argv[1:])
+    if argv and argv[0] == "warmup":
+        # `ccs warmup`: build the kernels, drive a declared bucket menu
+        from pbccs_tpu_torch.sched.warmup import run_warmup
+
+        return run_warmup(argv[1:], device=device)
+    if argv and argv[0] == "tune":
+        # `ccs tune`: the autotuner's batch leg
+        from pbccs_tpu_torch.tune.cli import run_tune
+
+        return run_tune(argv[1:], device=device)
     args = build_parser().parse_args(argv)
-    with apply_resilience_args(args):
+    from pbccs_tpu_torch.runtime import tuning
+
+    with apply_resilience_args(args), tuning.scope():
         return _run(args, device)
 
 
@@ -369,19 +414,32 @@ def _run(args, device) -> int:
         level=LogLevel.from_string(args.logLevel)))
     install_signal_handlers(log)
 
+    from pbccs_tpu_torch.runtime import tuning
+
+    # opt-in tuned-knob resolution: explicit flag / env still beats
+    # anything a profile carries
+    tuning.configure(args.tuneProfile, logger=log, device=device)
     try:
         whitelist = Whitelist(args.zmws)
     except ValueError as e:
         print(f"option --zmws: invalid specification: {e}", file=sys.stderr)
         return 2
+    if args.devices < 0:
+        print(f"option --devices: must be >= 0, got {args.devices}",
+              file=sys.stderr)
+        return 2
     if args.memBudget is not None:
         try:
-            budget = resources.parse_size(args.memBudget)
-            if budget < 1:
-                raise ValueError(f"must be >= 1 byte, got {budget}")
+            args.memBudget = resources.parse_size(args.memBudget)
+            if args.memBudget < 1:
+                raise ValueError(f"must be >= 1 byte, got {args.memBudget}")
         except ValueError as e:
             print(f"option --memBudget: {e}", file=sys.stderr)
             return 2
+    elif args.devices != 1:
+        # no explicit --memBudget: a tuned profile's byte budget applies
+        # (the single-device driver has no prepare backlog to gate)
+        args.memBudget = tuning.knob_int("mem_budget_bytes")
     settings = consensus_settings_from_args(args)
     files = flatten_fofn(args.files)
     for f in files:
@@ -437,7 +495,8 @@ def _run(args, device) -> int:
         ledger.append(run_record(
             run_window, kind="batch_run", source="ccs",
             workload={"files": [os.path.basename(f) for f in files],
-                      "chunk_size": args.chunkSize, "devices": 1,
+                      "chunk_size": args.chunkSize,
+                      "devices": args.devices,
                       "model": args.model},
             wall_s=time.monotonic() - t0, zmws=tally.total,
             results=len(tally.results), device=dev))
@@ -482,29 +541,30 @@ def _open_journal(args, files, settings, log):
     return journal, restored
 
 
-def _run_pipeline(args, files, whitelist, settings, log,
-                  device) -> ResultTally:
-    """Reader -> WorkQueue -> batched polish -> writer."""
+def _run_queue(args, settings, log, device, tally: ResultTally, journal,
+               restored, read_batches) -> None:
+    """The single-device driver: a bounded ordered work queue whose
+    threads each draft and polish one work item."""
     # at least 2 workers, the reference's reader/worker/writer form
     # (ccs.cpp:388-499).  The threads share the GIL and the card's
-    # default stream, and no overlap of one batch's host draft with
-    # another's polish has been measured yet (PERF.md section 5).  Torch
-    # ops and the kernels' ctypes launches of every thread run on that
-    # stream in issue order, so no kernel reads a tensor another thread
-    # is still writing.
+    # default stream.  Torch ops and the kernels' ctypes launches of
+    # every thread run on that stream in issue order, so no kernel reads
+    # a tensor another thread is still writing.
     n_threads = args.numThreads or max(2, min(8, os.cpu_count() or 1))
     if args.memBudget is not None:
-        log.warn("--memBudget gates the device-fleet scheduler's prepare "
-                 "backlog; this single-device WorkQueue form is already "
-                 "bounded by --numThreads work items, so the flag is "
-                 "ignored here")
-    tally = ResultTally()
-    movies: dict[str, ReadGroupInfo] = {}
-    journal, restored = _open_journal(args, files, settings, log)
+        log.warn("--memBudget gates the fleet driver's prepare backlog; "
+                 "the single-device WorkQueue driver (--devices 1) is "
+                 "already bounded by --numThreads work items, so the flag "
+                 "is ignored here")
+
+    from pbccs_tpu_torch.sched.pool import device_name
+
+    # the memory governor keys its ceilings by the card, under the name
+    # the fleet's worker on that card has (cuda:0)
+    governor_key = device_name(device)
 
     def run_batch(idx, batch):
-        # the memory governor keys its ceilings by the card of the run
-        with resources.device_scope(str(device)):
+        with resources.device_scope(governor_key):
             return idx, process_chunks(batch, settings,
                                        on_error=args.batchFallback,
                                        device=device)
@@ -514,60 +574,126 @@ def _run_pipeline(args, files, whitelist, settings, log,
     # the queue's bound counts results not yet CONSUMED, so the consumer
     # runs beside the produce loop (a produce-then-consume loop would
     # deadlock once the pipeline fills)
-    try:
-        with WorkQueue(n_threads) as wq:
-            def consume():
-                # after a journal write fails the consumer keeps draining
-                # (discarding) results, so a producer waiting for a
-                # pipeline slot wakes, sees the error and stops
-                try:
-                    for idx, sub_tally in wq.results():
-                        if consumer_error:
-                            continue
-                        consumed.merge(sub_tally)
-                        if journal is None:
-                            continue
-                        try:
-                            journal.record_chunk(idx, sub_tally)
-                        except OutputWriteError as e:
-                            consumer_error.append(e)
-                except BaseException as e:  # noqa: BLE001 -- re-raised below
-                    consumer_error.append(e)
-
-            consumer = threading.Thread(target=consume,
-                                        name="pbccs-consumer")
-            consumer.start()
+    with WorkQueue(n_threads) as wq:
+        def consume():
+            # after a journal write fails the consumer keeps draining
+            # (discarding) results, so a producer waiting for a pipeline
+            # slot wakes, sees the error and stops
             try:
-                batches = iter(gated_chunks(files, whitelist, args, log,
-                                            tally))
-                for idx in itertools.count():
+                for idx, sub_tally in wq.results():
                     if consumer_error:
-                        break
-                    with timing.stage("read"):
-                        batch = next(batches, None)
-                    if batch is None:
-                        break
-                    for chunk in batch:
-                        movie = chunk.id.split("/")[0]
-                        movies.setdefault(movie,
-                                          ReadGroupInfo(movie, "CCS"))
-                    if idx in restored:
-                        # journaled chunks are a prefix: they merge before
-                        # any computed chunk, so the output order is the
-                        # uninterrupted run's
-                        tally.merge(restored[idx])
                         continue
-                    with timing.stage("queue"):
-                        wq.produce(run_batch, idx, batch)
-            finally:
-                wq.finalize()
-                consumer.join()
-    finally:
-        if journal is not None:
-            journal.close()
+                    consumed.merge(sub_tally)
+                    if journal is None:
+                        continue
+                    try:
+                        journal.record_chunk(idx, sub_tally)
+                    except OutputWriteError as e:
+                        consumer_error.append(e)
+            except BaseException as e:  # noqa: BLE001 -- re-raised below
+                consumer_error.append(e)
+
+        consumer = threading.Thread(target=consume, name="pbccs-consumer")
+        consumer.start()
+        try:
+            for idx, batch in read_batches(tally):
+                if consumer_error:
+                    break
+                if idx in restored:
+                    # journaled chunks are a prefix: they merge before any
+                    # computed chunk, so the output order is the
+                    # uninterrupted run's
+                    tally.merge(restored[idx])
+                    continue
+                with timing.stage("queue"):
+                    wq.produce(run_batch, idx, batch)
+        finally:
+            wq.finalize()
+            consumer.join()
     if consumer_error:
         raise consumer_error[0]
     tally.merge(consumed)
+
+
+def _run_fleet(args, settings, log, device, tally: ResultTally, journal,
+               restored, read_batches) -> None:
+    """The device fleet (sched/): prepare threads draft and marshal
+    batches while one executor thread per card polishes earlier ones;
+    results come out in input order, so the output is the work queue's."""
+    from pbccs_tpu_torch.runtime import tuning
+    from pbccs_tpu_torch.sched import (DevicePool, DevicePoolConfig,
+                                       ScheduledPipeline, select_devices)
+
+    devs = select_devices(args.devices, device)
+    # --numThreads sizes the work queue; here it seeds the prepare pool
+    # (an explicit --prepareWorkers wins), then a tuned profile's count,
+    # then the default
+    prep_workers = (args.prepareWorkers or args.numThreads
+                    or tuning.knob_int("prepare_workers")
+                    or max(2, min(4, os.cpu_count() or 1)))
+    budget = None
+    if args.memBudget is not None:
+        budget = resources.HostBudget(args.memBudget, logger=log)
+    pool = DevicePool(devs, DevicePoolConfig(policy=args.schedPolicy),
+                      logger=log)
+    pipe = ScheduledPipeline(pool, settings, prepare_workers=prep_workers,
+                             on_error=args.batchFallback, budget=budget,
+                             logger=log)
+    # the reader runs on the pipeline's feeder thread, so its gate skips
+    # tally apart (merged below); journal-restored chunks ride through
+    # as precomputed tallies and come out at their index
+    gate_tally = ResultTally()
+    items = ((idx, batch, restored.get(idx))
+             for idx, batch in read_batches(gate_tally))
+    try:
+        for idx, sub_tally in pipe.run(items):
+            tally.merge(sub_tally)
+            if journal is not None and idx not in restored:
+                journal.record_chunk(idx, sub_tally)
+    except BaseException:
+        # the run is doomed: fail queued batches fast instead of
+        # polishing work nothing will consume
+        pool.close(wait=False)
+        raise
+    pool.close()
+    tally.merge(gate_tally)
+
+
+def _run_pipeline(args, files, whitelist, settings, log,
+                  device) -> ResultTally:
+    """Reader -> the work queue (--devices 1) or the device fleet's
+    scheduled pipeline (otherwise) -> batched polish -> writer."""
+    tally = ResultTally()
+    movies: dict[str, ReadGroupInfo] = {}
+    journal, restored = _open_journal(args, files, settings, log)
+
+    def read_batches(gate_tally: ResultTally):
+        """The reader of both drivers: (idx, batch) with read-stage
+        timing and the output header's movies; CLI-gate skips tally into
+        `gate_tally` (the fleet passes its own: this generator runs on
+        its feeder thread there)."""
+        batches = iter(gated_chunks(files, whitelist, args, log,
+                                    gate_tally))
+        for idx in itertools.count():
+            with timing.stage("read"):
+                batch = next(batches, None)
+            if batch is None:
+                return
+            for chunk in batch:
+                movie = chunk.id.split("/")[0]
+                movies.setdefault(movie, ReadGroupInfo(movie, "CCS"))
+            yield idx, batch
+
+    try:
+        if args.devices != 1:
+            _run_fleet(args, settings, log, device, tally, journal,
+                       restored, read_batches)
+        else:
+            _run_queue(args, settings, log, device, tally, journal,
+                       restored, read_batches)
+    finally:
+        if journal is not None:
+            journal.close()
     log.info(f"processed {tally.total} ZMWs: "
              f"{tally.counts[Failure.SUCCESS]} successes")
 

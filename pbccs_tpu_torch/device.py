@@ -11,8 +11,11 @@ import torch
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
-    """The torch device an entry point runs on (default: the card)."""
+    """The torch device an entry point runs on (default: the card).  A
+    CPU worker's indexed name (`cpu:3`, sched.pool) resolves to the CPU."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cpu":
+        return torch.device("cpu")
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "pbccs_tpu_torch runs on a CUDA device by default and none is "

@@ -15,9 +15,12 @@ with leading batch axes."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
+
+from pbccs_tpu_torch.runtime import tuning as _tuning
 
 # Base encoding used framework-wide: A=0 C=1 G=2 T=3, padding/invalid = 4.
 BASE_A, BASE_C, BASE_G, BASE_T, BASE_PAD = 0, 1, 2, 3, 4
@@ -149,12 +152,19 @@ class BandingOptions:
 
 
 def effective_band_width(banding: BandingOptions, jmax: int) -> int:
-    """Per-length-bucket band width: W=64 at buckets of <= 576 columns,
-    96 above (the JAX package's default schedule).  An explicit
-    band_width always wins (the pipeline's 2x mating retry escalates
-    through it)."""
+    """The band width of a bucket, by pbccs_tpu's ladder: an explicit
+    band_width (the pipeline's 2x mating retry escalates through it),
+    then PBCCS_BAND_W, then an applied `ccs tune` profile's band_w
+    (runtime/tuning.py), then the per-length-bucket schedule: W=64 at
+    buckets of <= 576 columns, 96 above."""
     if banding.band_width is not None:
         return banding.band_width
+    env = os.environ.get("PBCCS_BAND_W")
+    if env:
+        return int(env)
+    tuned = _tuning.knob_int("band_w")
+    if tuned is not None:
+        return tuned
     return 64 if jmax <= 576 else 96
 
 

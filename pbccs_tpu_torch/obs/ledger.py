@@ -295,10 +295,12 @@ def environment_fields(device=None) -> dict[str, Any]:
     """The meta fields every record shares: platform, torch version and
     tuned profile.  `platform` is "gpu" for a CUDA `device`, "cpu" for
     another; with no device, "gpu" only when this process already holds
-    a CUDA context -- a ledger append never creates one.  Tuned profiles
-    are not ported, so `tuned_profile` is "none" (pbccs_tpu's tag with no
-    profile active)."""
-    out: dict[str, Any] = {"tuned_profile": "none"}
+    a CUDA context -- a ledger append never creates one.
+    `tuned_profile` is the applied `ccs tune` profile's id, "none" on
+    the hand-tuned defaults (runtime/tuning.ledger_tag)."""
+    from pbccs_tpu_torch.runtime import tuning
+
+    out: dict[str, Any] = {"tuned_profile": tuning.ledger_tag()}
     try:
         import torch
 

@@ -269,6 +269,17 @@ def bucket_label(imax: int, jmax: int, r: int) -> str:
     return f"I{int(imax)}xJ{int(jmax)}xR{int(r)}"
 
 
+def label_from_capacity_bucket(bucket) -> str | None:
+    """('shape', imax, jmax, r) -> label, else None."""
+    try:
+        kind, imax, jmax, r = bucket
+    except (TypeError, ValueError):
+        return None
+    if kind != "shape":
+        return None
+    return bucket_label(imax, jmax, r)
+
+
 @dataclass(frozen=True)
 class CostCard:
     """Counted cost bound of one canonical bucket program.

@@ -14,11 +14,13 @@ device loop's fetched iteration counts) and the roofline plane's card,
 charge and refine scope (obs/roofline.py; the card is counted from the
 shapes).
 
-Left out of the port (TPU or fleet devices): the mesh, the straggler
-continuation and prebake adoption.  The JAX package's host refinement
-loop is not ported: the device loop handles the two cases the JAX device
-loop bails to it for (tiny read windows, a template outgrowing its
-bucket) itself."""
+A batch's host marshalling (premarshal) may be built ahead of time on a
+prepare thread of the device fleet's scheduled pipeline and adopted by
+the polisher (`prebaked=`).  Left out of the port: the mesh (a read-axis
+all-reduce across cards) and the straggler continuation.  The JAX
+package's host refinement loop is not ported: the device loop handles
+the two cases the JAX device loop bails to it for (tiny read windows, a
+template outgrowing its bucket) itself."""
 
 from __future__ import annotations
 
@@ -143,8 +145,13 @@ class ZmwTask:
 class PrebakedBatch:
     """Bucket-shaped host marshalling of a ZmwTask batch: the padded numpy
     planes and the SNR transition tables (f64 host evaluation, cast to
-    f32) that the device setup consumes."""
+    f32) that the device setup consumes.  Numpy only: a prepare thread of
+    the scheduled pipeline builds it (pipeline.prebake_polish) and the
+    device worker uploads it.  One code path: BatchPolisher without a
+    prebake calls premarshal() itself, so prebaked and inline batches are
+    equal by construction."""
 
+    tasks: list
     shapes: tuple[int, int, int, int]   # (Imax, Jmax, R, Z)
     reads: np.ndarray
     rlens: np.ndarray
@@ -153,6 +160,21 @@ class PrebakedBatch:
     tends: np.ndarray
     real_rows: np.ndarray
     host_tables: np.ndarray
+
+
+def premarshal_nbytes(shapes: tuple[int, int, int, int]) -> int:
+    """Host bytes a premarshal() of these effective (Imax, Jmax, R, Z)
+    shapes holds -- the per-batch charge the HostBudget (--memBudget)
+    gates the prepare threads on.  pbccs_tpu's count, plane by plane
+    (its snrs and n_reads planes included, which the port derives
+    instead of keeping), so a budget throttles both packages alike."""
+    imax, _jmax, r, z = shapes
+    return (z * r * imax          # reads int8
+            + 4 * z * r * 4       # rlens/strands/tstarts/tends int32
+            + z * 4 * 8           # snrs float64
+            + z * 4               # n_reads int32
+            + z * r               # real_rows bool
+            + z * 8 * 4 * 4)      # host_tables float32 (8, 4) per ZMW
 
 
 def premarshal(tasks: Sequence[ZmwTask], *,
@@ -201,8 +223,8 @@ def premarshal(tasks: Sequence[ZmwTask], *,
     host_tables = np.stack(
         [snr_to_transition_table_host(snrs[z]) for z in range(Z)]
     ).astype(np.float32)
-    return PrebakedBatch((Imax, Jmax, R, Z), reads, rlens, strands, tstarts,
-                         tends, real_rows, host_tables)
+    return PrebakedBatch(list(tasks), (Imax, Jmax, R, Z), reads, rlens,
+                         strands, tstarts, tends, real_rows, host_tables)
 
 
 class SetupOut(NamedTuple):
@@ -261,7 +283,11 @@ class BatchPolisher:
                  config: ArrowConfig | None = None,
                  min_zscore: float = float("nan"), *,
                  buckets: tuple[int, ...] | None = None,
-                 device=None):
+                 device=None, prebaked: PrebakedBatch | None = None):
+        """`prebaked`: a PrebakedBatch built ahead of time on a prepare
+        thread (pipeline.prebake_polish), adopted only when it was built
+        from THIS task batch (object identity) at this construction's
+        effective shapes, else re-marshalled."""
         if not tasks:
             raise ValueError("empty batch")
         self.device = resolve_device(device)
@@ -271,7 +297,14 @@ class BatchPolisher:
         self.tpls: list[np.ndarray] = [np.asarray(t.tpl, np.int8)
                                        for t in tasks]
 
-        pb = premarshal(tasks, buckets=buckets)
+        pb = prebaked
+        if pb is None or pb.shapes != effective_shapes(
+                len(tasks), max(len(t.reads) for t in tasks),
+                max((len(r) for t in tasks for r in t.reads), default=8),
+                max(len(t.tpl) for t in tasks), buckets=buckets) \
+                or len(pb.tasks) != len(tasks) \
+                or any(a is not b for a, b in zip(pb.tasks, tasks)):
+            pb = premarshal(tasks, buckets=buckets)
         self._Imax, self._Jmax, self._R, self._Z = pb.shapes
         self._W = effective_band_width(self.config.banding, self._Jmax)
         self._reads = pb.reads

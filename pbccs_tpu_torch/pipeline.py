@@ -483,9 +483,22 @@ def _polish_tasks(preps: Sequence[PreparedZmw]) -> list:
                     [m.tpl_end for m in p.mapped]) for p in preps]
 
 
+def prebake_polish(preps: Sequence[PreparedZmw]):
+    """The polish's host marshalling of a prepared batch, built on the
+    PREPARE side: its ZmwTask batch and bucket-shaped numpy planes
+    (parallel.batch.premarshal).  The scheduled pipeline's prepare
+    threads run this while the device worker polishes earlier batches;
+    pass the result to polish_prepared_batch(prebaked=...).  Numpy only:
+    no CUDA tensor is made off the device worker."""
+    from pbccs_tpu_torch.parallel.batch import premarshal
+
+    return premarshal(_polish_tasks(preps))
+
+
 def _polish_batch_arrow(preps: Sequence[PreparedZmw],
                         settings: ConsensusSettings, device, *,
-                        buckets: tuple[int, ...] | None = None
+                        buckets: tuple[int, ...] | None = None,
+                        prebaked=None
                         ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One lockstep BatchPolisher over `preps` (shapes at least
     `buckets` = (Imax, Jmax, R[, Z])), outcomes ALIGNED with `preps`.  Raises
@@ -493,10 +506,11 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
 
     t0 = time.monotonic()
-    tasks = _polish_tasks(preps)
+    tasks = prebaked.tasks if prebaked is not None else _polish_tasks(preps)
     with obs_trace.span("polish.setup", zmws=len(preps)):
         polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
-                                 buckets=buckets, device=device)
+                                 buckets=buckets, device=device,
+                                 prebaked=prebaked)
     gate_info = [_read_gates(p, polisher.statuses[z], settings)
                  for z, p in enumerate(preps)]
     # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
@@ -628,7 +642,7 @@ def _pinned_batch_shapes(preps: Sequence[PreparedZmw],
 
 def _guarded_dispatch(preps: Sequence[PreparedZmw],
                       settings: ConsensusSettings, device, *,
-                      buckets: tuple[int, ...] | None
+                      buckets: tuple[int, ...] | None, prebaked=None
                       ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One fault-domain batch dispatch: the chaos fault site
     ("polish.dispatch", keyed by ZMW ids so a spec can poison one ZMW)
@@ -640,12 +654,15 @@ def _guarded_dispatch(preps: Sequence[PreparedZmw],
     from pbccs_tpu_torch.resilience import faults, retry, watchdog
 
     ids = [p.chunk.id for p in preps]
+    # only the scheduled pipeline's full-batch dispatch carries a prebake
+    extra = {} if prebaked is None else {"prebaked": prebaked}
 
     def dispatch():
         # the fault site sits INSIDE the watchdog scope: an injected
         # delay exercises exactly the hung-dispatch recovery path
         faults.maybe_fail("polish.dispatch", keys=ids)
-        return _polish_batch_arrow(preps, settings, device, buckets=buckets)
+        return _polish_batch_arrow(preps, settings, device, buckets=buckets,
+                                   **extra)
 
     def attempt():
         return watchdog.run_with_deadline(dispatch, site="polish.dispatch")
@@ -664,7 +681,9 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
                           settings: ConsensusSettings | None = None, *,
                           device=None,
                           buckets: tuple[int, int, int] | None = None,
-                          on_error: str = "bisect"
+                          on_error: str = "bisect",
+                          raise_device_shaped: bool = False,
+                          prebaked=None
                           ) -> list[tuple[Failure, ConsensusResult | None]]:
     """Polish prepared ZMWs in one lockstep BatchPolisher; outcomes
     ALIGNED with `preps`.
@@ -685,6 +704,15 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
         parent's shapes, "serial" re-runs every ZMW through the serial
         polish.  Either way an isolated ZMW whose serial rescue fails
         too is quarantined (resilience.quarantine).
+
+    `raise_device_shaped=True` (the device fleet's FIRST attempt at a
+    batch) also re-raises a WatchdogTimeout or a RetriesExhausted instead
+    of bisecting on the device that just hung, so the DevicePool can
+    strike it and requeue the whole batch to a healthy one.
+
+    `prebaked`: a PrebakedBatch from prebake_polish (built on a prepare
+    thread), adopted by the full-batch dispatch only -- capacity parts,
+    bisection sub-dispatches and serial rescues marshal their own.
 
     Quiver ZMWs polish one by one with per-ZMW isolation."""
     if on_error not in ON_ERROR:
@@ -713,30 +741,34 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
         out: list[tuple[Failure, ConsensusResult | None]] = []
         start = 0
         for size in resources.split_sizes(len(preps), cap):
-            out.extend(_polish_split_part(preps[start:start + size],
-                                          settings, dev, pin,
-                                          on_error=on_error))
+            out.extend(_polish_split_part(
+                preps[start:start + size], settings, dev, pin,
+                on_error=on_error, raise_device_shaped=raise_device_shaped))
             start += size
         return out
     return _polish_guarded(preps, settings, dev, buckets=buckets, pin=pin,
-                           on_error=on_error)
+                           on_error=on_error,
+                           raise_device_shaped=raise_device_shaped,
+                           prebaked=prebaked)
 
 
 def _polish_split_part(preps: Sequence[PreparedZmw],
                        settings: ConsensusSettings, device, pin, *,
-                       on_error: str
+                       on_error: str, raise_device_shaped: bool = False
                        ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One part of a capacity split or an admission pre-split: pinned to
     the parent's (Imax, Jmax, R) bucket (the band width is the parent's;
     the smaller Z is the memory relief), with the full recovery (further
     capacity splits, quarantine, serial rescue)."""
     return _polish_guarded(preps, settings, device, buckets=pin, pin=pin,
-                           on_error=on_error)
+                           on_error=on_error,
+                           raise_device_shaped=raise_device_shaped)
 
 
 def _capacity_split(preps: Sequence[PreparedZmw],
                     settings: ConsensusSettings, device, pin, *,
-                    on_error: str, note: resources.CapacityError
+                    on_error: str, note: resources.CapacityError,
+                    raise_device_shaped: bool = False
                     ) -> list[tuple[Failure, ConsensusResult | None]]:
     """Recovery from a capacity failure at batch size Z: record the
     governor ceiling (Z // 2 for this device and bucket) and re-dispatch
@@ -758,35 +790,40 @@ def _capacity_split(preps: Sequence[PreparedZmw],
     mid = len(preps) // 2
     out: list[tuple[Failure, ConsensusResult | None]] = []
     for sub in (preps[:mid], preps[mid:]):
-        out.extend(_polish_split_part(sub, settings, device, pin,
-                                      on_error=on_error))
+        out.extend(_polish_split_part(
+            sub, settings, device, pin, on_error=on_error,
+            raise_device_shaped=raise_device_shaped))
     return out
 
 
 def _polish_guarded(preps: Sequence[PreparedZmw],
                     settings: ConsensusSettings, device, *,
                     buckets: tuple[int, ...] | None, pin,
-                    on_error: str
+                    on_error: str, raise_device_shaped: bool = False,
+                    prebaked=None
                     ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One guarded dispatch with the failure classification of
     polish_prepared_batch (capacity -> split, device -> re-raise,
     task -> quarantine bisection or the serial fallback).  Bisection
     sub-dispatches run at this dispatch's (Imax, Jmax, R) and Z, so the
     surviving ZMWs come out bit for bit as from this dispatch."""
-    from pbccs_tpu_torch.resilience import quarantine
+    from pbccs_tpu_torch.resilience import quarantine, retry, watchdog
 
     def split(sub, note):
         return _capacity_split(sub, settings, device, pin,
-                               on_error=on_error, note=note)
+                               on_error=on_error, note=note,
+                               raise_device_shaped=raise_device_shaped)
 
     try:
-        return _guarded_dispatch(preps, settings, device, buckets=buckets)
+        return _guarded_dispatch(preps, settings, device, buckets=buckets,
+                                 prebaked=prebaked)
     except Exception as e:  # noqa: BLE001 -- classified below
         if resources.is_capacity_error(e):
             record_zmw_failure("polish.capacity", e,
                                zmw=f"batch[{len(preps)}]")
             note = resources.CapacityError.of(e)
-        elif is_device_error(e):
+        elif is_device_error(e) or (raise_device_shaped and isinstance(
+                e, (watchdog.WatchdogTimeout, retry.RetriesExhausted))):
             raise
         elif on_error == "serial":
             record_zmw_failure("polish.batch", e, zmw=f"batch[{len(preps)}]")

@@ -552,6 +552,42 @@ def test_watchdog_worker_launches_on_the_callers_stream(cuda):
         _assert_same_fill(g, w)
 
 
+def test_device_pool_polishes_on_cuda0(cuda):
+    """A DevicePool over the first card runs one prebaked polish on its
+    worker thread, where cuda:0 is the current device, and writes what
+    process_chunks writes on the card."""
+    from pbccs_tpu_torch.pipeline import (Chunk, Subread,
+                                          polish_prepared_batch,
+                                          prebake_polish, prepare_batch,
+                                          process_chunks)
+    from pbccs_tpu_torch.sched import DevicePool, select_devices
+
+    rng = np.random.default_rng(29)
+    chunks = []
+    for z in range(3):
+        _, reads, _, snr = simulate_zmw(rng, 300, 5)
+        chunks.append(Chunk(f"p/{z}", [Subread(f"p/{z}/{i}", r)
+                                       for i, r in enumerate(reads)], snr))
+    _, preps = prepare_batch(chunks)
+    prebaked = prebake_polish(preps)
+
+    def task(dev):
+        return (torch.cuda.current_device(), dev,
+                polish_prepared_batch(preps, device=dev, prebaked=prebaked))
+
+    fills = fc.arrow_fill.launches
+    with DevicePool(select_devices(1)) as pool:
+        current, dev, outcomes = pool.submit("k", task).result(600)
+    assert current == 0 and dev == torch.device("cuda", 0)
+    assert fc.arrow_fill.launches > fills
+    got = {r.id: r for _, r in outcomes if r is not None}
+    want = {r.id: r for r in process_chunks(chunks).results}
+    assert sorted(got) == sorted(want) and got
+    for k in got:
+        assert got[k].sequence == want[k].sequence
+        np.testing.assert_array_equal(got[k].qvs, want[k].qvs)
+
+
 @pytest.mark.parametrize("quiver", [False, True])
 def test_read_scorers_card_match_cpu(cuda, quiver):
     """score_read launches K1 and score_read_quiver K2 once on the card;

@@ -192,9 +192,10 @@ def test_wrappers_reject_unsupported_devices():
 
 
 def test_port_imports_without_jax():
-    """pbccs_tpu_torch (every module, the Quiver path's, the CLI's and
-    its resilience and observability tiers' named) and chip_smoke.py
-    import with jax and pbccs_tpu poisoned."""
+    """pbccs_tpu_torch (every module, the Quiver path's, the CLI's, its
+    resilience and observability tiers', the device fleet's, the tuner's
+    and the tuner's referee named) and chip_smoke.py import with jax and
+    pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -218,6 +219,13 @@ def test_port_imports_without_jax():
         "          'resilience.watchdog', 'resilience.resources',\n"
         "          'resilience.checkpoint')}\n"
         "assert tiers <= names, tiers - names\n"
+        "fleet = {'pbccs_tpu_torch.' + n for n in\n"
+        "         ('sched', 'sched.health', 'sched.pool', 'sched.executor',\n"
+        "          'sched.warmup', 'runtime.tuning', 'tune', 'tune.space',\n"
+        "          'tune.profile', 'tune.objective', 'tune.driver',\n"
+        "          'tune.cli')}\n"
+        "assert fleet <= names, fleet - names\n"
+        "names.add('pbccs_tpu_torch.tools.perf_gate')\n"
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
