@@ -136,16 +136,44 @@ script exits non-zero):
      its --trace-out), and one --perfLedger record (sched_batches 2,
      platform gpu);
  14. tune: `ccs tune` on the card in a fresh process (8 ZMWs, 3 passes,
-     300 bp, --knobs prepare_workers, --tuneBudget 90): exit 0, the
-     journal holding the defaults run and each candidate, and a shipped
-     profile naming this card's device_kind and torch_version or the
-     summary's "nothing to ship"; then a profile for this card with
+     300 bp, --knobs prepare_workers, --tuneBudget 90, --serveLeg over
+     its default grid of five candidates): exit 0, the journal
+     holding the defaults run and each candidate, a serve leg whose `ccs
+     serve` processes all answered (a candidate rejected only for other
+     sequences), and a shipped profile naming this card's device_kind
+     and torch_version or the summary's "nothing to ship"; then a profile for this card with
      prepare_workers 2, written by tune.profile.save_profile and applied
      to phase 13's fleet run with --tuneProfile and --perfLedger: its
      record's tuned_profile the profile's id, its records byte-equal to
-     phase 10's.
-Then the card's name and power limit, the kernel table as one JSON
-line, and as the last line {"ok": true, "device": {...}}.
+     phase 10's;
+ 15. serve: an in-process CcsEngine + CcsServer on cuda:0 (max_batch 32,
+     max_wait SERVE_WAIT_MS, one prep thread, --perfLedger) fed phase
+     10's gated ZMWs in input order by the port's CcsClient, each
+     request's trace id its ZMW id, the launch counters zeroed just
+     before and read just after, a span capture started and stopped
+     over the wire (`trace` verb): every flush's size, reason and
+     (Imax, Jmax, R, Z) from its serve.polish span; each reply's
+     consensus fields (sequence, qual, predicted accuracy, passes,
+     z-score) byte-equal to polish_prepared_batch on the flush's ZMWs at
+     those shapes (the contract: the batcher groups by length bucket,
+     so no flush holds one of phase 10's input-order batches), and
+     against phase 10's record the same sequence with QVs within 1 (the
+     count that differ in bytes printed); the status verb
+     and the engine's serve_snapshot ledger record; peak device memory;
+     then the same ZMWs again to the warm server (byte-equal to the
+     first pass), each pass's first-reply latency and its client-side
+     and ccs_serve_request_latency_seconds p50/p99 beside phase 13's
+     fresh-process first batches.  Then `python -m pbccs_tpu_torch.cli
+     serve --port 0 --metricsPort -1 --perfLedger ...` (max_batch 4):
+     CCS-SERVE-READY, 4 ZMWs of one length bucket byte-equal to an
+     in-process max_batch 4 server's, /metrics and /healthz scraped,
+     SIGTERM with a request in flight: CCS-SERVE-DRAINING, the request
+     answered, exit 0, a final serve_snapshot record; and
+     `PBCCS_BAND_W=80 ... serve` exiting 2 with the allowed widths
+     named.
+Then each phase's seconds as one JSON line, the card's name and power
+limit, the kernel table as one JSON line, and as the last line
+{"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository.  Imports nothing of JAX."""
@@ -1075,8 +1103,9 @@ def phase_cli(chunks, truths, main_path) -> dict:
     args = cli.build_parser().parse_args(argv)
     gate_tally = ResultTally()
     want = []
-    for batch in cli.gated_chunks([in_bam], Whitelist("all"), args,
-                                  Logger.default(), gate_tally):
+    batches = list(cli.gated_chunks([in_bam], Whitelist("all"), args,
+                                    Logger.default(), gate_tally))
+    for batch in batches:
         want += process_chunks(batch, device="cuda").results
     same = [encode_record(r) for r in records] == [
         encode_record(cli.result_record(r)) for r in want]
@@ -1098,6 +1127,8 @@ def phase_cli(chunks, truths, main_path) -> dict:
            "phase4_identity_mean": main_path["identity_mean"],
            "launches": launches, "quarantine_events": events}
     emit(out)
+    # for phase 15: the gated batches the CLI polished and their results
+    out["batches"], out["results"] = batches, want
     if rc != 0 or not records or not same or not out["pbi_holes_match"] \
             or not out["one_worker_same_bam"]:
         raise AssertionError("the CLI's records, index or exit code are "
@@ -1570,7 +1601,7 @@ WARMUP_BUCKET = "32x10x2000"
 #: phase 14's `ccs tune`: calibration geometry and wall-clock budget
 TUNE_ARGS = ("--zmws", "8", "--passes", "3", "--tplLen", "300",
              "--chunkSize", "8", "--repeat", "1", "--knobs",
-             "prepare_workers", "--tuneBudget", "90")
+             "prepare_workers", "--tuneBudget", "90", "--serveLeg")
 TUNE_PROFILE_KNOBS = {"prepare_workers": 2}
 
 
@@ -1796,8 +1827,9 @@ def phase_fleet(cli_out) -> dict:
 
 
 def phase_tune(cli_out) -> dict:
-    """`ccs tune`'s batch leg on the card in a fresh process, then a
-    profile for this card applied to phase 10's CLI through the fleet."""
+    """`ccs tune`'s batch and serve legs on the card in a fresh process,
+    then a profile for this card applied to phase 10's CLI through the
+    fleet."""
     import os
 
     from pbccs_tpu_torch.obs.ledger import read_ledger
@@ -1842,6 +1874,12 @@ def phase_tune(cli_out) -> dict:
               == host["torch_version"])
     elif ok:
         ok = "nothing to ship" in summary.get("note", "")
+    # the serve leg: a `ccs serve` process for the defaults and for each
+    # serve candidate, none failed
+    leg = (summary or {}).get("serve_leg") or {}
+    ok = ok and "error" not in leg and "baseline" in leg and not [
+        r for r in leg.get("rejected", [])
+        if r["reason"] != "served output differs from defaults"]
     # a profile for this card, applied to the fleet run of phase 10's CLI
     profile = HostProfile(fingerprint=host, knobs=dict(TUNE_PROFILE_KNOBS))
     path = os.path.join(wd, "card.json")
@@ -1865,6 +1903,329 @@ def phase_tune(cli_out) -> dict:
     return out
 
 
+#: phase 15's flush threshold (ZMWs per bucket) and wait: longer than
+#: one prep thread takes to draft phase 10's 64 ZMWs (~1.9 s), so every
+#: length bucket flushes whole -- on fill at 32, else at its deadline
+SERVE_BATCH = 32
+SERVE_WAIT_MS = 4_000.0
+#: ZMWs the `ccs serve` subprocess polishes (one length bucket, so they
+#: flush on fill), and the bound of its start
+SERVE_CHILD_ZMWS = 4
+SERVE_READY_S = 300.0
+
+
+def _wire_record(reply) -> tuple:
+    """What phase 15 holds byte-equal: the reply's consensus fields."""
+    return tuple(reply.get(k) for k in ("status", "zmw", "sequence", "qual",
+                                        "num_passes", "predicted_accuracy",
+                                        "avg_zscore", "draft_only"))
+
+
+def _serve_pass(client, chunks, trace: bool) -> dict:
+    """Every chunk submitted at once through the port's client (its ZMW
+    id as the request's trace id), every reply awaited (bounded): the
+    replies by ZMW id, the pass's wall, its first reply's latency (the
+    first flush's completion), client-side latency percentiles and the
+    engine's ccs_serve_request_latency_seconds p50/p99 over the pass."""
+    from pbccs_tpu_torch.obs.metrics import (default_registry,
+                                             histogram_quantile)
+    from pbccs_tpu_torch.serve.engine import _m_latency
+
+    scope = default_registry().scope()
+    t0 = time.monotonic()
+    handles = [(c.id, client.submit_chunk(
+        c, trace={"trace_id": c.id, "span_id": None} if trace else None))
+        for c in chunks]
+    arrival: dict[str, float] = {}
+    deadline = t0 + 600.0
+    while len(arrival) < len(handles):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve: {len(handles) - len(arrival)} "
+                                 "replies missing after 600 s")
+        for zid, h in handles:
+            if zid not in arrival and h.done():
+                arrival[zid] = time.monotonic() - t0
+        time.sleep(0.001)
+    replies = {zid: h.reply(0.0, check=False) for zid, h in handles}
+    counts, _sum, n = scope.delta()[(_m_latency.name, ())]
+    lat = np.array(sorted(arrival.values())) * 1e3
+    return {"replies": replies, "wall_s": max(arrival.values()),
+            "first_reply_s": min(arrival.values()),
+            "client_latency_ms_p50": float(np.percentile(lat, 50)),
+            "client_latency_ms_p99": float(np.percentile(lat, 99)),
+            "engine_requests": n,
+            "engine_latency_s_p50_le": histogram_quantile(
+                counts, _m_latency.bounds, 0.50),
+            "engine_latency_s_p99_le": histogram_quantile(
+                counts, _m_latency.bounds, 0.99)}
+
+
+def _serve_child(argv, env=None):
+    """`python -m pbccs_tpu_torch.cli serve ARGV` started from the
+    checkout with its stdout on a pipe."""
+    import os
+
+    return subprocess.Popen(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", "serve", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=env)
+
+
+def _http_get(host: str, port: int, path: str) -> tuple[int, bytes]:
+    """(status, body) of one GET on the metrics endpoint, straight to the
+    socket (no proxy from the environment)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(host, port, timeout=30.0)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def phase_serve(cli_out, fleet_out) -> dict:
+    """`ccs serve` on the card: an in-process CcsEngine + CcsServer fed
+    phase 10's gated ZMWs twice, then a `ccs serve` process (see the
+    module docstring)."""
+    import os
+
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.obs.ledger import read_ledger
+    from pbccs_tpu_torch.runtime.logging import Logger, LogLevel
+    from pbccs_tpu_torch.serve import protocol
+    from pbccs_tpu_torch.serve.client import CcsClient, wait_for_ready
+    from pbccs_tpu_torch.serve.engine import (CcsEngine, ServeConfig,
+                                              flush_buckets)
+    from pbccs_tpu_torch.serve.server import CcsServer
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "serve_smoke")
+    os.makedirs(d, exist_ok=True)
+    chunks = [c for b in cli_out["batches"] for c in b]
+    order = {c.id: i for i, c in enumerate(chunks)}
+    prep_by_id = {p.chunk.id: p for batch in cli_out["batches"]
+                  for p in tp.prepare_batch(batch)[1]}
+    want = {r.id: r for r in cli_out["results"]}
+    log = Logger(level=LogLevel.from_string("WARN"))
+    ledger = os.path.join(d, "engine_ledger.ndjson")
+    if os.path.exists(ledger):
+        os.remove(ledger)
+    cfg = ServeConfig(max_batch=SERVE_BATCH, max_wait_ms=SERVE_WAIT_MS,
+                      prep_workers=1, perf_ledger_path=ledger,
+                      perf_ledger_interval_s=3600.0)
+    out = {"phase": "serve", "card": card_line(), "zmws": len(chunks),
+           "max_batch": SERVE_BATCH, "max_wait_ms": SERVE_WAIT_MS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    t_up = time.monotonic()
+    with CcsEngine(config=cfg, logger=log) as engine:
+        server = CcsServer(engine, port=0, logger=log).start()
+        try:
+            with CcsClient(server.host, server.port, timeout=600.0) as cli:
+                out["engine_up_s"] = time.monotonic() - t_up
+                assert cli.trace("start")["state"] == "started"
+                first = _serve_pass(cli, chunks, trace=True)
+                spans = cli.trace("stop")["trace"]["traceEvents"]
+                launches = _launch_counts()
+                _zero_launch_counts()
+                second = _serve_pass(cli, chunks, trace=False)
+                launches2 = _launch_counts()
+                status = cli.status()
+        finally:
+            server.shutdown()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    records, skipped = read_ledger(ledger)
+    snap = records[-1] if records and not skipped else {}
+    # every flush of the first pass, from its serve.polish span: members
+    # (their trace ids; one prep thread keeps input order), reason and the
+    # (Imax, Jmax, R, Z) it polished at; each flush's members polished
+    # again by polish_prepared_batch at those shapes, the batch path's
+    # records the serve flush must give byte for byte
+    flushes, batch_path = [], {}
+    for ev in sorted((e for e in spans if e["name"] == "serve.polish"),
+                     key=lambda e: e["ts"]):
+        ids = sorted(ev["args"]["trace_ids"], key=order.get)
+        preps = [prep_by_id[i] for i in ids]
+        shapes = flush_buckets(preps)
+        flushes.append({"zmws": ev["args"]["zmws"],
+                        "reason": ev["args"]["reason"],
+                        "shapes": list(shapes),
+                        "polish_ms": ev["dur"] / 1e3})
+        for i, (failure, result) in zip(ids, tp.polish_prepared_batch(
+                preps, buckets=shapes)):
+            batch_path[i] = _wire_record(protocol.result_to_wire(
+                None, i, failure, result, 0.0))
+    same_as_batch_path = sum(_wire_record(first["replies"][i]) == rec
+                             for i, rec in batch_path.items())
+    # served records against phase 10's: the batcher groups by length
+    # bucket, so a flush holds other ZMWs than phase 10's input-order
+    # batches and runs at other shapes; the parity standard, with the
+    # count that differ in bytes
+    byte_equal = parity = differ_bytes = 0
+    bad = []
+    for zid, reply in first["replies"].items():
+        ref = want.get(zid)
+        if ref is None:
+            if reply.get("status") == "Success":
+                bad.append(f"{zid}: served Success, phase 10 no record")
+            continue
+        expect = protocol.result_to_wire(None, zid, tp.Failure.SUCCESS, ref,
+                                         0.0)
+        if _wire_record(reply) == _wire_record(expect):
+            byte_equal += 1
+            continue
+        differ_bytes += 1
+        qv = np.frombuffer(reply.get("qual", "").encode(), np.uint8)
+        qr = np.frombuffer(expect["qual"].encode(), np.uint8)
+        if reply.get("sequence") == ref.sequence and len(qv) == len(qr) \
+                and np.abs(qv.astype(int) - qr.astype(int)).max() <= 1:
+            parity += 1
+        else:
+            bad.append(f"{zid}: not the same sequence with QVs within 1")
+    repeat_same = sum(_wire_record(second["replies"][z])
+                      == _wire_record(first["replies"][z])
+                      for z in first["replies"])
+    out.update(
+        flushes=flushes, flushed_zmws=len(batch_path),
+        same_as_batch_path_at_flush_shapes=same_as_batch_path,
+        byte_equal=byte_equal, parity_only=parity,
+        differ_in_bytes=differ_bytes, failures=bad,
+        served_success=sum(r.get("status") == "Success"
+                           for r in first["replies"].values()),
+        phase10_records=len(want), second_pass_byte_equal=repeat_same,
+        launches=launches, second_pass_launches=launches2,
+        max_memory_allocated=peak,
+        status={k: status.get(k) for k in ("completed", "errors", "pending",
+                                           "stage_seconds")},
+        ledger_record={k: snap.get(k) for k in (
+            "kind", "platform", "completed", "errors", "polish_dispatches",
+            "refine_rounds_device", "device_fetches", "uptime_s")},
+        passes=[{k: v for k, v in p.items() if k != "replies"}
+                for p in (first, second)],
+        phase13_fresh_first_batch_s=[f["first_batch_s"]
+                                     for f in fleet_out["fresh_ccs"]],
+        phase10_wall_s=cli_out["wall_s"])
+
+    # 4 ZMWs of one length bucket through a max_batch 4 in-process server
+    # and a `ccs serve` process: byte-equal at the same shapes; then its
+    # metrics endpoint, SIGTERM drain with a request in flight, exit 0
+    from pbccs_tpu_torch.parallel.batch import length_bucket
+
+    def bucket(c):
+        p = prep_by_id[c.id]
+        return length_bucket(len(p.css), max(len(m.seq) for m in p.mapped))
+
+    keys = [bucket(c) for c in chunks if c.id in prep_by_id]
+    home = max(set(keys), key=keys.count)
+    sub = [c for c in chunks if c.id in prep_by_id
+           and bucket(c) == home][:SERVE_CHILD_ZMWS]
+    small = ServeConfig(max_batch=SERVE_CHILD_ZMWS, max_wait_ms=SERVE_WAIT_MS,
+                        prep_workers=1)
+    with CcsEngine(config=small, logger=log) as engine:
+        server = CcsServer(engine, port=0, logger=log).start()
+        try:
+            with CcsClient(server.host, server.port, timeout=600.0) as cli:
+                local = _serve_pass(cli, sub, trace=False)["replies"]
+        finally:
+            server.shutdown()
+    child_ledger = os.path.join(d, "child_ledger.ndjson")
+    if os.path.exists(child_ledger):
+        os.remove(child_ledger)
+    t0 = time.monotonic()
+    proc = _serve_child(["--port", "0", "--metricsPort", "-1",
+                         "--perfLedger", child_ledger, "--maxBatch",
+                         str(SERVE_CHILD_ZMWS), "--maxWaitMs",
+                         str(SERVE_WAIT_MS), "--prepWorkers", "1",
+                         "--logLevel", "WARN"])
+    lines: list[str] = []
+    child = {}
+    try:
+        ready = wait_for_ready(proc, SERVE_READY_S, lines)
+        if ready is None:
+            raise AssertionError(f"ccs serve never became ready: {lines}")
+        child["ready_s"] = time.monotonic() - t0
+        host, port = ready["CCS-SERVE-READY"]
+        mhost, mport = ready["CCS-METRICS-READY"]
+        with CcsClient(host, port, timeout=600.0) as cli:
+            got = _serve_pass(cli, sub, trace=False)
+            child["first_reply_s"] = got["first_reply_s"]
+            child["byte_equal"] = sum(
+                _wire_record(got["replies"][c.id])
+                == _wire_record(local[c.id]) for c in sub)
+            _, metrics = _http_get(mhost, mport, "/metrics")
+            child["metrics_completed"] = next(
+                (line.split()[-1] for line in metrics.decode().splitlines()
+                 if line.startswith("ccs_serve_completed_total")), None)
+            code, health = _http_get(mhost, mport, "/healthz")
+            child["healthz"] = [code, health.decode().strip()]
+            in_flight = cli.submit_chunk(
+                next(c for c in chunks if c not in sub))
+            # SIGTERM once the engine admitted it: a submit that arrives
+            # after the drain began is answered `closed` instead
+            admitted = status_now = None
+            deadline = time.monotonic() + 60.0
+            while time.monotonic() < deadline:
+                status_now = cli.status()
+                admitted = status_now["admitted"]
+                if admitted > SERVE_CHILD_ZMWS:
+                    break
+                time.sleep(0.01)
+            child["admitted_before_sigterm"] = admitted
+            proc.send_signal(15)
+            last = in_flight.reply(timeout=600.0, check=False)
+            child["in_flight_reply"] = [last.get("type"), last.get("status")]
+        child["exit_code"] = proc.wait(timeout=120.0)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30.0)
+    child["draining_line"] = any(x.startswith("CCS-SERVE-DRAINING signal="
+                                              "SIGTERM") for x in lines)
+    crecs, _ = read_ledger(child_ledger)
+    child["ledger_last"] = crecs[-1].get("kind") if crecs else None
+    # a band width the kernels cannot polish at: refused at start
+    env = dict(os.environ, PBCCS_BAND_W="80")
+    refused = _serve_child(["--port", "0", "--logLevel", "WARN"], env=env)
+    try:
+        _, err = refused.communicate(timeout=300)
+    finally:
+        if refused.poll() is None:
+            refused.kill()
+            refused.wait(timeout=30.0)
+    child["band_w_80"] = {"exit_code": refused.returncode,
+                          "names_widths": "32, 64, 96, 128" in err}
+    out["child"] = child
+    emit(out)
+    if bad or byte_equal + parity != len(want) \
+            or out["served_success"] != len(want):
+        raise AssertionError(f"serve: records unlike phase 10's: {bad}")
+    if same_as_batch_path != len(batch_path) \
+            or len(batch_path) != len(prep_by_id):
+        raise AssertionError("serve: flushes unlike polish_prepared_batch "
+                             "at their shapes")
+    if repeat_same != len(first["replies"]):
+        raise AssertionError("serve: the warm pass differs from the first")
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        raise AssertionError(f"serve: K1/K3 not launched: {launches}")
+    if status.get("errors") or snap.get("kind") != "serve_snapshot" \
+            or snap.get("platform") != "gpu":
+        raise AssertionError(f"serve: status or ledger record: "
+                             f"{out['status']} {out['ledger_record']}")
+    if child.get("byte_equal") != SERVE_CHILD_ZMWS \
+            or child.get("exit_code") != 0 or not child["draining_line"] \
+            or child.get("in_flight_reply", [None])[0] != "result" \
+            or child["healthz"] != [200, "ok"] \
+            or child["ledger_last"] != "serve_snapshot" \
+            or child["band_w_80"] != {"exit_code": 2, "names_widths": True}:
+        raise AssertionError(f"serve: the `ccs serve` process: {child}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1878,27 +2239,40 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.monotonic()
+        out = fn(*args)
+        seconds[name] = round(time.monotonic() - t0, 3)
+        return out
+
+    timed("build", phase_build)
     rng = np.random.default_rng(SEED)
     chunks, truths = simulate_chunks(rng, N_ZMWS, TPL_LEN, PASSES)
     fx = kernel_fixture(list(zip(chunks[:BATCH], truths[:BATCH])), "cuda")
-    fill, kept = phase_fill(fx)
-    dense = phase_dense(fx, kept)
+    fill, kept = timed("arrow_fill", phase_fill, fx)
+    dense = timed("dense_score", phase_dense, fx, kept)
     W = fx["W"]
     del fx, kept    # phase 4's peak memory is the main path's alone
-    main_path, main_tally = phase_main(chunks, truths)
-    phase_cross(chunks[:N_CROSS])
-    k2 = phase_quiver_fill(quiver_fixture(chunks[0], truths[0], "cuda"))
+    main_path, main_tally = timed("main_path", phase_main, chunks, truths)
+    timed("cross_device", phase_cross, chunks[:N_CROSS])
+    k2 = timed("quiver_fill", phase_quiver_fill,
+               quiver_fixture(chunks[0], truths[0], "cuda"))
     small, _ = simulate_chunks(rng, 1, QUIVER_SMALL[0],
                                (QUIVER_SMALL[1],) * 2)
-    quiver = phase_quiver(chunks[:N_QUIVER], truths[:N_QUIVER], small)
-    phase_fallbacks(rng)
-    phase_serial(chunks[:N_SERIAL], truths[:N_SERIAL], main_tally)
-    cli_out = phase_cli(chunks, truths, main_path)
-    phase_resilience(cli_out)
-    phase_ledger(chunks, truths, cli_out)
-    phase_fleet(cli_out)
-    phase_tune(cli_out)
+    quiver = timed("quiver_path", phase_quiver, chunks[:N_QUIVER],
+                   truths[:N_QUIVER], small)
+    timed("refine_fallbacks", phase_fallbacks, rng)
+    timed("serial", phase_serial, chunks[:N_SERIAL], truths[:N_SERIAL],
+          main_tally)
+    cli_out = timed("cli", phase_cli, chunks, truths, main_path)
+    timed("resilience", phase_resilience, cli_out)
+    timed("ledger", phase_ledger, chunks, truths, cli_out)
+    fleet_out = timed("fleet", phase_fleet, cli_out)
+    timed("tune", phase_tune, cli_out)
+    timed("serve", phase_serve, cli_out, fleet_out)
+    emit({"phase_seconds": seconds})
 
     # K1's launch on the main path: alpha and beta together at the
     # schedule's W

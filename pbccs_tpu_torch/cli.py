@@ -22,14 +22,21 @@ fault injection (--faults, --faultSeed), the dispatch watchdog
 (--profile-dir), the perf ledger (--perfLedger: one `batch_run` record
 per run, obs/ledger.py) and tuned knobs (--tuneProfile, runtime/
 tuning.py).  Every run ends with the `run metrics:` table of its registry
-window.  Subcommands: `ccs roofline` (obs/roofline.py), `ccs warmup`
-(sched/warmup.py) and `ccs tune` (tune/cli.py); the serve tier's (serve,
-router, fleet, top) and `analyze` are left out, and argparse rejects
-them.
+window.  Subcommands: `ccs serve` (serve/server.py: the long-lived
+engine on the card behind the NDJSON/TCP protocol; `ccs serve --port 0`
+prints `CCS-SERVE-READY host port` and drains on SIGTERM), `ccs
+roofline` (obs/roofline.py), `ccs warmup` (sched/warmup.py) and `ccs
+tune` (tune/cli.py, with its serve leg); the router tier's (router,
+fleet, top) and `analyze` are left out, and argparse rejects them.  On
+the card, a band width the kernels cannot polish at (PBCCS_BAND_W, a
+tuned band_w; ops/fwdbwd_cuda.RUN_WIDTHS) exits 2 before anything is
+written.
 
 `run(argv, device=...)` is the in-process entry: the polish runs on the
 card unless `device` names another (the tests pass device="cpu"; with
---devices N that is N CPU workers).  The fault injector, watchdog
+--devices N that is N CPU workers; the serve tests call
+serve.server.run_serve(argv, device="cpu") in a child process, or run
+its engine and server in-process).  The fault injector, watchdog
 deadline and tune profile a run arms are restored when it returns, so
 in-process runs do not leak them into each other."""
 
@@ -146,6 +153,23 @@ def apply_resilience_args(args):
         faults.install(prev_injector)
         if args.polishTimeout is not None:
             watchdog.configure(prev_deadline)
+
+
+def band_width_refused(device, widths=()) -> bool:
+    """Whether a band width this run would fix (PBCCS_BAND_W, a tuned
+    band_w, the schedule, each of ``widths``: a tuner's band_w
+    candidates) is one the card cannot polish at: then the reason goes
+    to stderr and the entry point exits 2 before it writes anything.
+    Every width polishes on the CPU."""
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import check_run_band_width
+
+    try:
+        check_run_band_width("cuda" if device is None else device,
+                             widths=widths)
+    except ValueError as e:
+        print(f"ccs: {e}", file=sys.stderr)
+        return True
+    return False
 
 
 def consensus_settings_from_args(args) -> ConsensusSettings:
@@ -386,6 +410,11 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
     """The `ccs` batch command; returns the exit code (2 on a usage
     error, 1 on an output failure)."""
     argv = sys.argv[1:] if argv is None else argv
+    if argv and argv[0] == "serve":
+        # `ccs serve`: the long-lived online engine (serve/)
+        from pbccs_tpu_torch.serve.server import run_serve
+
+        return run_serve(argv[1:], device=device)
     if argv and argv[0] == "roofline":
         # `ccs roofline`: per-bucket counted bound vs measured report
         from pbccs_tpu_torch.obs.roofline import run_roofline
@@ -419,6 +448,8 @@ def _run(args, device) -> int:
     # opt-in tuned-knob resolution: explicit flag / env still beats
     # anything a profile carries
     tuning.configure(args.tuneProfile, logger=log, device=device)
+    if args.model == "arrow" and band_width_refused(device):
+        return 2
     try:
         whitelist = Whitelist(args.zmws)
     except ValueError as e:

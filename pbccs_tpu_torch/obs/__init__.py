@@ -18,8 +18,10 @@ span and ledger field names:
   * obs.flight -- the refine loop's per-round flight recorder, dumped
     on a quarantine and on a memory-governor ceiling;
   * obs.roofline -- kernel work counted from the shapes, per-bucket
-    cost cards, charging and efficiency gauges (`ccs roofline`).
+    cost cards, charging and efficiency gauges (`ccs roofline`);
+  * obs.httpexp -- the HTTP /metrics and /healthz endpoint of `ccs
+    serve` (`--metricsPort`).
 
-Not ported yet (they serve the serving tier): the HTTP scrape endpoint,
-the fleet console and the metrics federation helpers.
+Not ported yet (they serve the router tier): the fleet console and the
+metrics federation helpers.
 """

@@ -380,6 +380,28 @@ def _escape(v: str) -> str:
     return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
 
+def histogram_quantile(counts: "tuple[int, ...]",
+                       bounds: "tuple[float, ...]", q: float) -> float:
+    """Approximate quantile from per-bucket counts (the snapshot()
+    layout: len(bounds)+1 buckets, last = +Inf overflow).  Returns the
+    upper bound of the bucket holding the q-th observation (+Inf bucket
+    reports the last finite bound -- a floor, honestly labeled by the
+    caller); NaN when empty.  Used for the status verb's SLO block."""
+    total = sum(counts)
+    if total == 0 or not bounds:
+        # empty histogram (or degenerate: every observation in the
+        # implicit +Inf bucket with no finite bound to report) -- NaN,
+        # never an IndexError mid-scrape
+        return float("nan")
+    rank = q * total
+    cum = 0
+    for i, c in enumerate(counts):
+        cum += c
+        if cum >= rank:
+            return bounds[i] if i < len(bounds) else bounds[-1]
+    return bounds[-1]
+
+
 def _fmt(v: float) -> str:
     if v == int(v) and abs(v) < 1e15:
         return str(int(v))

@@ -798,8 +798,8 @@ def run_roofline(argv: list[str] | None = None) -> int:
     args = p.parse_args(argv)
 
     if args.target:
-        p.error("--target reads a serve replica's status verb, and the "
-                "serving tier (ccs serve / ccs router) is not ported")
+        p.error("--target is not ported: it comes with the rest of the "
+                "serving tier (ccs router, fleet, top)")
     doc: dict = {"schema_version": ROOFLINE_SCHEMA_VERSION}
     if args.ledger:
         block = _block_from_ledger(args.ledger)

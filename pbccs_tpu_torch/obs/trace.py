@@ -1,9 +1,8 @@
 """Per-ZMW trace spans with wall vs device-wait attribution.
 
-Port of pbccs_tpu.obs.trace without the serving tier's cross-process
-trace context (trace ids, remote parents, retroactive spans: no port
-caller has a remote peer).  A Tracer collects a span tree per
-thread (filter -> draft -> polish -> polish.setup / polish.refine /
+Port of pbccs_tpu.obs.trace without the router's retroactive spans
+(`add_span`: the router is not ported).  A Tracer collects a span tree
+per thread (filter -> draft -> polish -> polish.setup / polish.refine /
 polish.qv -> emit) and exports Chrome-trace/Perfetto JSON ("traceEvents"
 with complete "X" events: load chrome://tracing or ui.perfetto.dev).
 Wall time is the span's duration; device-wait seconds are attributed to
@@ -12,9 +11,17 @@ the INNERMOST open span of the thread that blocked
 a polish span decomposes into host work vs waiting on the card's queue
 at a device-to-host copy.
 
-Tracing is OFF unless a tracer is installed (CLI --trace-out); the
-disabled fast path is one global read per span() call, cheap enough to
-leave the instrumentation in the hot pipeline.
+Tracing is OFF unless a tracer is installed (CLI --trace-out, serve
+`trace` verb); the disabled fast path is one global read per span() call,
+cheap enough to leave the instrumentation in the hot pipeline.
+
+Cross-process trace context: a span may carry an inbound `ctx` dict --
+``{"trace_id": ..., "span_id": ...}``, the wire shape of
+serve/protocol.py's `trace` submit field -- naming the REMOTE parent it
+continues.  Children inherit the trace_id through the per-thread stack,
+and every context-bearing span exports a process-unique `span_id`, so a
+per-request tree can be reassembled across processes from the three
+args trace_id / span_id / remote_parent.
 
 """
 
@@ -29,14 +36,22 @@ import uuid
 from typing import Any, Iterator
 
 
+def new_trace_id() -> str:
+    """A fresh 16-hex-char request trace id (minted at the first tier
+    that sees the request: the client)."""
+    return uuid.uuid4().hex[:16]
+
+
 class Span:
     """One finished-or-open span; nesting is per-thread."""
 
     __slots__ = ("name", "args", "tid", "t0", "t1", "device_wait_s",
-                 "parent", "index", "open")
+                 "parent", "index", "trace_id", "remote_parent", "open")
 
     def __init__(self, name: str, args: dict[str, Any], tid: int,
-                 t0: float, parent: "Span | None", index: int):
+                 t0: float, parent: "Span | None", index: int,
+                 trace_id: str | None = None,
+                 remote_parent: str | None = None):
         self.name = name
         self.args = args
         self.tid = tid
@@ -45,6 +60,8 @@ class Span:
         self.device_wait_s = 0.0
         self.parent = parent
         self.index = index
+        self.trace_id = trace_id
+        self.remote_parent = remote_parent
         self.open = True
 
     @property
@@ -80,18 +97,29 @@ class Tracer:
         return stack
 
     @contextlib.contextmanager
-    def span(self, name: str, **args) -> Iterator[Span | None]:
+    def span(self, name: str, ctx: dict | None = None,
+             **args) -> Iterator[Span | None]:
         """Record one span, nested in the calling thread's innermost open
-        span."""
+        span.  `ctx` is an inbound cross-process trace context
+        ({"trace_id", "span_id"}): the span adopts its trace_id and
+        records its span_id as the REMOTE parent; without ctx the
+        trace_id is inherited from the enclosing span (if any)."""
         stack = self._stack()
         parent = stack[-1] if stack else None
+        trace_id = remote_parent = None
+        if ctx:
+            trace_id = ctx.get("trace_id")
+            remote_parent = ctx.get("span_id")
+        elif parent is not None:
+            trace_id = parent.trace_id
         with self._lock:
             if len(self._spans) >= self.max_spans:
                 self.dropped_spans += 1
                 sp = None
             else:
                 sp = Span(name, args, threading.get_ident() & 0xFFFFFFFF,
-                          time.perf_counter(), parent, len(self._spans))
+                          time.perf_counter(), parent, len(self._spans),
+                          trace_id=trace_id, remote_parent=remote_parent)
                 self._spans.append(sp)
         if sp is None:
             yield None
@@ -103,6 +131,21 @@ class Tracer:
             sp.t1 = time.perf_counter()
             sp.open = False
             stack.pop()
+
+    def span_id_of(self, sp: Span) -> str:
+        """The span's process-unique exported id."""
+        return f"{self.tag}-{sp.index}"
+
+    def context_of(self, sp: Span) -> dict | None:
+        """The wire trace context continuing this span on the next hop
+        (None when the span belongs to no trace)."""
+        if sp.trace_id is None:
+            return None
+        return {"trace_id": sp.trace_id, "span_id": self.span_id_of(sp)}
+
+    def current_span(self) -> Span | None:
+        stack = self._stack()
+        return stack[-1] if stack else None
 
     def add_device_wait(self, dt: float) -> None:
         """Attribute dt blocking seconds to the calling thread's innermost
@@ -139,6 +182,11 @@ class Tracer:
             args["device_wait_ms"] = round(sp.device_wait_s * 1e3, 3)
             if sp.parent is not None:
                 args["parent"] = sp.parent.index
+            if sp.trace_id is not None:
+                args["trace_id"] = sp.trace_id
+                args["span_id"] = self.span_id_of(sp)
+            if sp.remote_parent is not None:
+                args["remote_parent"] = sp.remote_parent
             t1 = sp.t1
             if sp.open:
                 open_spans += 1
@@ -226,14 +274,15 @@ def clear_tracer(expected: Tracer) -> bool:
 
 
 @contextlib.contextmanager
-def span(name: str, **args) -> Iterator[Span | None]:
+def span(name: str, ctx: dict | None = None, **args) -> Iterator[Span | None]:
     """Record a span on the installed tracer; no-op (one global read)
-    when tracing is off."""
+    when tracing is off.  `ctx` carries an inbound cross-process trace
+    context (see Tracer.span)."""
     t = _tracer
     if t is None:
         yield None
         return
-    with t.span(name, **args) as sp:
+    with t.span(name, ctx=ctx, **args) as sp:
         yield sp
 
 
@@ -241,3 +290,16 @@ def add_device_wait(dt: float) -> None:
     t = _tracer
     if t is not None:
         t.add_device_wait(dt)
+
+
+def current_context() -> dict | None:
+    """Wire trace context of the calling thread's innermost open span on
+    the installed tracer (None when tracing is off or the span carries
+    no trace id) -- what a client attaches to an outbound submit."""
+    t = _tracer
+    if t is None:
+        return None
+    sp = t.current_span()
+    if sp is None:
+        return None
+    return t.context_of(sp)

@@ -53,6 +53,52 @@ _TINY = 1e-30
 #: band widths K1 is built for: 32 lanes per held slot, 1..8 slots but 7
 #: (csrc/arrow_fill.cu spills there)
 K1_WIDTHS = (32, 64, 96, 128, 160, 192, 256)
+#: band widths a run may polish at on the card: K1 and K3 take W, and the
+#: pipeline's 2x mating retry takes 2W
+RUN_WIDTHS = tuple(w for w in K1_WIDTHS if 2 * w in K1_WIDTHS)
+
+
+def check_band_width(width: int, device) -> None:
+    """Refuse, before a run starts, a band width the card cannot polish
+    at: on a CUDA device W and 2W must both be widths K1 and K3 are built
+    for (RUN_WIDTHS).  Any width passes on another device (the plain
+    versions take every W).  Raises ValueError naming the allowed
+    widths."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and width not in RUN_WIDTHS:
+        raise ValueError(
+            f"band width {width} cannot polish on {dev.type}: the kernels "
+            f"are built for {K1_WIDTHS} and the 2x band retry needs twice "
+            f"the width, so the widths allowed are "
+            f"{', '.join(map(str, RUN_WIDTHS))}")
+
+
+def check_run_band_width(device, banding=None, widths=()) -> None:
+    """check_band_width on every width a run with these banding options
+    can fix, by effective_band_width's ladder (explicit, PBCCS_BAND_W,
+    the tuned profile's band_w, the per-length schedule at both of its
+    steps), and on each of ``widths`` (a tuner's band_w candidates).
+    Entry points call it after a tune profile is applied."""
+    from pbccs_tpu_torch.models.arrow.params import (BandingOptions,
+                                                     effective_band_width)
+
+    banding = banding or BandingOptions()
+    for jmax in (576, 577):   # the schedule's two steps
+        check_band_width(effective_band_width(banding, jmax), device)
+    for w in widths:
+        check_band_width(w, device)
+
+
+def check_polisher_width(width: int, device) -> None:
+    """Refuse, when a polisher is built, a width K1 and K3 have no build
+    for on a CUDA device (one polisher launches at W alone; its 2x retry
+    builds another at 2W).  Raises LaunchRefused, a ValueError that the
+    pipeline treats as the device's and does not bisect."""
+    from pbccs_tpu_torch.ops.cuda_lib import LaunchRefused
+
+    if torch.device(device).type == "cuda" and width not in K1_WIDTHS:
+        raise LaunchRefused(f"BatchPolisher: band width {width} is not "
+                            f"one the kernels are built for {K1_WIDTHS}")
 
 
 # --------------------------------------------------------------------------

@@ -54,6 +54,7 @@ from pbccs_tpu_torch.models.arrow.scorer import (
 from pbccs_tpu_torch.obs import flight as obs_flight
 from pbccs_tpu_torch.obs import roofline as obs_roofline
 from pbccs_tpu_torch.obs.metrics import default_registry, log_buckets
+from pbccs_tpu_torch.ops.fwdbwd_cuda import check_polisher_width
 from pbccs_tpu_torch.parallel import device_refine as dr
 from pbccs_tpu_torch.runtime.timing import device_fetch
 
@@ -97,6 +98,14 @@ def _imax_bucket(raw_imax: int) -> int:
     steps, floor 64."""
     step = max(64, 1 << max(raw_imax - 1, 1).bit_length() - 3)
     return pad_to(raw_imax, step)
+
+
+def length_bucket(tpl_len: int, max_read_len: int) -> tuple[int, int]:
+    """The (Jmax, Imax) shape bucket a ZMW of this geometry polishes in
+    (pbccs_tpu's): the grouping key of the serving engine's dynamic
+    batcher (serve/batcher.py), so the ZMWs of one flush share their
+    template and read buckets."""
+    return _jmax_bucket(tpl_len), _imax_bucket(max_read_len + 8)
 
 
 def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
@@ -307,6 +316,8 @@ class BatchPolisher:
             pb = premarshal(tasks, buckets=buckets)
         self._Imax, self._Jmax, self._R, self._Z = pb.shapes
         self._W = effective_band_width(self.config.banding, self._Jmax)
+        # refuse here, before any launch, not mid-refine
+        check_polisher_width(self._W, self.device)
         self._reads = pb.reads
         self._rlens = pb.rlens
         self._strands = pb.strands

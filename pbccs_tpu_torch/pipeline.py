@@ -680,7 +680,7 @@ ON_ERROR = ("bisect", "serial")
 def polish_prepared_batch(preps: Sequence[PreparedZmw],
                           settings: ConsensusSettings | None = None, *,
                           device=None,
-                          buckets: tuple[int, int, int] | None = None,
+                          buckets: tuple[int, ...] | None = None,
                           on_error: str = "bisect",
                           raise_device_shaped: bool = False,
                           prebaked=None

@@ -17,8 +17,8 @@ other fault the resilience subsystem knows:
   * host memory pressure (a fast reader + prepare pool outrunning the
     device) must surface as a THROTTLE, not as the OOM killer: the
     `HostBudget` gate bounds the bytes of prepared-batch backlog in
-    flight.  Its caller, the device-fleet scheduler behind `--memBudget`,
-    is not ported yet, so nothing in the port admits through it today;
+    flight.  Its caller is the device-fleet scheduler behind
+    `--memBudget` (sched/executor.py);
   * a full disk (`ENOSPC`) on the checkpoint journal or an output
     writer must become a STRUCTURED `OutputWriteError` with
     bytes-written accounting and atomic tmp+rename finalization -- a

@@ -1,10 +1,11 @@
 """RetryPolicy: exponential backoff + deterministic jitter, deadline-aware.
 
-Port of pbccs_tpu.resilience.retry (the same delays, jitter stream and
-`ccs_retries_total{site}` counter), without the serve client's
-overloaded-backpressure policy and its server delay hints.
-
-The device dispatch retries TRANSIENT failures before the quarantine
+Port of pbccs_tpu.resilience.retry (the same delays, jitter stream,
+`ccs_retries_total{site}` counter and policies).  Two call sites define
+the contract: the serve client retries `overloaded` rejections
+(OVERLOADED_RETRY: bounded attempts, jittered backoff, a server's
+`retry_after_ms` hint honored through `delay_hint`), and the device
+dispatch retries TRANSIENT failures before the quarantine
 machinery treats the batch as poisoned.  What counts as transient is
 narrower than in pbccs_tpu: JAX retries any XlaRuntimeError that is not
 INVALID_ARGUMENT, but the CUDA errors torch raises (illegal address,
@@ -70,12 +71,20 @@ class RetryPolicy:
             retry_on: Callable[[BaseException], bool],
             site: str = "retry",
             rng: np.random.Generator | None = None,
-            sleep: Callable[[float], None] = time.sleep) -> T:
+            sleep: Callable[[float], None] = time.sleep,
+            delay_hint: Callable[[BaseException], float | None]
+            | None = None) -> T:
         """Call fn() with retries on errors retry_on() accepts.
 
         Non-retryable errors propagate untouched.  When attempts or the
         deadline run out, raises RetriesExhausted from the last error
-        (so callers can distinguish "gave up" from "not retryable")."""
+        (so callers can distinguish "gave up" from "not retryable").
+
+        `delay_hint(exc)` (optional) may return a server-supplied
+        backoff in SECONDS (a shed reply's retry_after_ms): when present
+        it overrides the exponential schedule for the next sleep, capped
+        at max_delay_s and jittered like any other delay.  The schedule
+        still advances underneath."""
         counter = _retry_counter(site)
         rng = rng or np.random.default_rng()
         t0 = time.monotonic()
@@ -92,6 +101,13 @@ class RetryPolicy:
             delay = next(delays, None)
             if delay is None:
                 break
+            if delay_hint is not None:
+                hint_s = delay_hint(last)
+                if hint_s is not None:
+                    j = (rng.uniform(-self.jitter, self.jitter)
+                         if self.jitter else 0.0)
+                    delay = min(self.max_delay_s,
+                                max(0.0, float(hint_s) * (1.0 + j)))
             if self.deadline_s is not None and \
                     time.monotonic() - t0 + delay > self.deadline_s:
                 break
@@ -110,6 +126,11 @@ class RetryPolicy:
 # expensive to sit on), generous cap
 DEVICE_RETRY = RetryPolicy(max_attempts=3, base_delay_s=0.1,
                            max_delay_s=5.0)
+
+# the serve client's overloaded-backpressure default: patient, deadline-
+# governed (the attempt bound is a backstop, not the limiter)
+OVERLOADED_RETRY = RetryPolicy(max_attempts=128, base_delay_s=0.05,
+                               max_delay_s=2.0, deadline_s=120.0)
 
 # status markers of a transient failure (pbccs_tpu's list).
 # RESOURCE_EXHAUSTED is deliberately not here: a device OOM is

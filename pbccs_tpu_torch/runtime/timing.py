@@ -112,3 +112,8 @@ def stage_seconds(win: _metrics.MeasurementScope) -> dict[str, float]:
     overlapped workers the stages can sum past wall time."""
     return {dict(labels)["stage"]: v
             for labels, v in win.counters(STAGE_SECONDS).items() if v != 0}
+
+
+def fetch_count(win: _metrics.MeasurementScope) -> int:
+    """Blocking device-to-host fetches over the window."""
+    return int(win.counter_value(DEVICE_FETCHES))

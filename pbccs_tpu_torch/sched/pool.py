@@ -108,7 +108,7 @@ def device_name(device: torch.device) -> str:
     return f"{device.type}:{device.index or 0}"
 
 
-def _on_device(device: torch.device):
+def on_device(device: torch.device):
     """The current-device scope of a task: the card for a CUDA worker."""
     if device.type == "cuda":
         return torch.cuda.device(device)
@@ -390,7 +390,7 @@ class DevicePool:
             with resources.device_scope(w.name):
                 faults.maybe_fail("sched.dispatch",
                                   keys=[w.name, str(task.key)])
-                with _on_device(w.device), \
+                with on_device(w.device), \
                         roofline.dispatch_scope(rl_label, zmws=task.zmws):
                     result = task.fn(w.device)
         except BaseException as e:  # noqa: BLE001 -- classified below

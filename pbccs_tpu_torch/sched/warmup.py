@@ -129,6 +129,10 @@ def run_warmup(argv: list[str] | None = None, *, device=None) -> int:
     from pbccs_tpu_torch.runtime import tuning
 
     tuning.configure(args.tuneProfile, logger=log, device=device)
+    from pbccs_tpu_torch.cli import band_width_refused
+
+    if band_width_refused(device):
+        return 2
     if not args.bucket:
         args.bucket = tuning.knob_str_list("warmup_buckets")
     if not args.bucket:

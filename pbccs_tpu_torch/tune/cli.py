@@ -6,7 +6,11 @@ emit a host profile (port of pbccs_tpu.tune.cli, same flags).
 
 Prints ONE machine-readable JSON summary line (shipped?, winner, gain,
 rejected candidates, referee verdict), like `ccs warmup`'s JSON report.
-`--serveLeg` exits 2: the serve tier is not ported yet.
+`--serveLeg` then sweeps the serve flush knobs (serve_max_batch,
+serve_max_wait_ms) through a `ccs serve` subprocess per candidate
+(driver.run_serve_leg) and merges the winner into the shipped profile.
+On the card, a band_w candidate the kernels cannot polish at exits 2
+before any candidate runs.
 """
 
 from __future__ import annotations
@@ -93,8 +97,7 @@ def build_tune_parser() -> argparse.ArgumentParser:
                         "leg cannot measure).")
     p.add_argument("--serveLeg", action="store_true",
                    help="Also sweep the serve flush knobs through a "
-                        "`ccs serve` subprocess per candidate (the serve "
-                        "tier is not ported yet: exits 2).")
+                        "`ccs serve` subprocess per candidate.")
     p.add_argument("--seed", type=int, default=20260807,
                    help="Calibration workload seed. Default = %(default)s")
     p.add_argument("--logLevel", default="INFO")
@@ -114,11 +117,6 @@ def run_tune(argv: list[str] | None = None, *, device=None) -> int:
     profile carries (None: the card the calibration runs polish on)."""
     args = build_tune_parser().parse_args(argv)
     log = Logger.default(Logger(level=LogLevel.from_string(args.logLevel)))
-    if args.serveLeg:
-        print("ccs tune: --serveLeg drives `ccs serve`, and the serve tier "
-              "is not ported yet", file=sys.stderr)
-        return 2
-
     knob_names = args.knobs.split(",") if args.knobs else None
     if knob_names:
         for name in knob_names:
@@ -153,6 +151,17 @@ def run_tune(argv: list[str] | None = None, *, device=None) -> int:
             print(f"ccs tune: --set {spec!r}: {e}", file=sys.stderr)
             return 2
 
+    # every band_w a candidate would run at must be one the card can
+    # polish at: refused here, not as a candidate failing mid-search
+    from pbccs_tpu_torch.cli import band_width_refused
+
+    knobs = space.batch_space(knob_names, overrides)
+    widths = [w for k in knobs if k.name == "band_w" for w in k.candidates]
+    if "band_w" in forced:
+        widths.append(forced["band_w"])
+    if band_width_refused(device, widths):
+        return 2
+
     workdir = args.workdir or tempfile.mkdtemp(prefix="ccs_tune_")
     out_path = args.out or _default_out(device)
     cfg = driver.TuneConfig(
@@ -161,13 +170,29 @@ def run_tune(argv: list[str] | None = None, *, device=None) -> int:
         chunk_size=args.chunkSize, seed=args.seed, repeat=args.repeat,
         budget_s=args.tuneBudget, min_gain=args.minGain,
         devices=args.devices,
-        knobs=space.batch_space(knob_names, overrides),
+        knobs=knobs,
         forced=forced, resume=args.resume, device=device, log=log)
     log.info(f"tune: workdir {workdir}; sweeping "
              f"{[k.name for k in cfg.knobs]} over a "
              f"{args.zmws}x{args.passes}x{args.tplLen} calibration "
              f"workload, repeat={args.repeat}")
     summary = driver.run_search(cfg)
+    if args.serveLeg and "error" not in summary:
+        serve_knobs: dict = {}
+        summary["serve_leg"] = driver.run_serve_leg(cfg, serve_knobs)
+        if serve_knobs and summary.get("shipped"):
+            # re-ship with the serve winners merged in
+            import dataclasses
+
+            from pbccs_tpu_torch.tune.profile import (load_profile,
+                                                      save_profile)
+
+            prof, _ = load_profile(out_path)
+            if prof is not None:
+                prof = dataclasses.replace(
+                    prof, knobs={**prof.knobs, **serve_knobs})
+                save_profile(prof, out_path)
+                summary["profile_id"] = prof.profile_id
     print(json.dumps(summary, sort_keys=True))
     log.flush()
     if "error" in summary:

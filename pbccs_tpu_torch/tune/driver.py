@@ -460,3 +460,120 @@ def run_search(cfg: TuneConfig) -> dict[str, Any]:
     summary["profile"] = cfg.out_path
     summary["profile_id"] = profile.profile_id
     return summary
+
+
+# --------------------------------------------------------------- serve leg
+
+#: bounds of one serve-leg candidate: the server's start (a fresh
+#: process, the card's lazy start) and each reply
+SERVE_READY_TIMEOUT_S = 180.0
+SERVE_REPLY_TIMEOUT_S = 300.0
+
+
+def serve_command(assignment: dict[str, Any]) -> list[str]:
+    """The `ccs serve` command of one serve-leg candidate."""
+    argv = [sys.executable, "-m", "pbccs_tpu_torch.cli", "serve",
+            "--port", "0", "--logLevel", "WARN"]
+    for name, value in sorted(assignment.items()):
+        argv += [space.knob_by_name(name).target, str(value)]
+    return argv
+
+
+def _serve_candidate(cfg: TuneConfig, assignment: dict[str, Any],
+                     calib: str) -> tuple[str, float, float] | str:
+    """One serve-leg candidate: a fresh `ccs serve` subprocess with the
+    assignment's flags, the calibration ZMWs submitted at once through
+    CcsClient.  (digest of the returned sequences, wall s, p99 ms), or
+    the reason it failed."""
+    import statistics
+
+    from pbccs_tpu_torch.io.fasta import read_fasta
+    from pbccs_tpu_torch.serve.client import CcsClient, wait_for_ready
+
+    proc = subprocess.Popen(serve_command(assignment), env=_base_env(cfg),
+                            cwd=_REPO_ROOT, stdout=subprocess.PIPE,
+                            text=True)
+    try:
+        ready = wait_for_ready(proc, SERVE_READY_TIMEOUT_S)
+        if ready is None:
+            return "serve exited or never printed CCS-SERVE-READY"
+        addr = ready["CCS-SERVE-READY"]
+        by_zmw: dict[str, list[str]] = {}
+        for name, seq in read_fasta(calib):
+            by_zmw.setdefault("/".join(name.split("/")[:2]), []).append(seq)
+        t0 = time.monotonic()
+        lat: list[float] = []
+        replies = {}
+        with CcsClient(*addr, timeout=SERVE_REPLY_TIMEOUT_S) as client:
+            handles = [(zid, time.monotonic(), client.submit(zid, reads))
+                       for zid, reads in by_zmw.items()]
+            for zid, t_sub, handle in handles:
+                replies[zid] = handle.reply(SERVE_REPLY_TIMEOUT_S,
+                                            check=False)
+                lat.append((time.monotonic() - t_sub) * 1e3)
+        wall = time.monotonic() - t0
+        digest = hashlib.sha256()
+        for zid in sorted(replies):
+            r = replies[zid]
+            digest.update(zid.encode())
+            digest.update(str(r.get("sequence", r.get("error"))).encode())
+        p99 = (statistics.quantiles(lat, n=100)[98]
+               if len(lat) >= 2 else (lat[0] if lat else 0.0))
+        return digest.hexdigest(), wall, p99
+    except (OSError, TimeoutError) as e:
+        return f"serve candidate failed: {e!r}"
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=30.0)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=30.0)
+
+
+def run_serve_leg(cfg: TuneConfig, profile_knobs: dict[str, Any]
+                  ) -> dict[str, Any]:
+    """The serve-knob sweep (`ccs tune --serveLeg`, pbccs_tpu's): a
+    fresh `ccs serve` subprocess per candidate over the calibration
+    ZMWs, the returned consensus set byte-compared with the defaults',
+    flush thresholds picked by wall clock with p99 as tie-breaker.  The
+    winning knobs are merged into ``profile_knobs`` for the caller to
+    ship."""
+    calib = write_calibration(cfg)
+    results: dict[str, Any] = {"candidates": [], "rejected": []}
+    best: tuple[dict[str, Any], float, float] | None = None
+    base = _serve_candidate(cfg, {}, calib)
+    if isinstance(base, str):
+        results["error"] = f"serve defaults run failed: {base}"
+        return results
+    baseline_digest, base_wall, base_p99 = base
+    results["baseline"] = {"wall_s": round(base_wall, 3),
+                           "p99_ms": round(base_p99, 2)}
+    for knob in space.SERVE_KNOBS:
+        for value in knob.candidates:
+            assignment = {knob.name: value}
+            out = _serve_candidate(cfg, assignment, calib)
+            if isinstance(out, str):
+                results["rejected"].append(
+                    {"assignment": assignment, "reason": out})
+                continue
+            digest, wall, p99 = out
+            if digest != baseline_digest:
+                results["rejected"].append(
+                    {"assignment": assignment,
+                     "reason": "served output differs from defaults"})
+                continue
+            results["candidates"].append(
+                {"assignment": assignment, "wall_s": round(wall, 3),
+                 "p99_ms": round(p99, 2)})
+            better = wall < base_wall * (1 - objective.REL_TIE_EPS) \
+                or (wall < base_wall * (1 + objective.REL_TIE_EPS)
+                    and p99 < base_p99)
+            if better and (best is None or wall < best[1]):
+                best = (assignment, wall, p99)
+    if best is not None:
+        profile_knobs.update(best[0])
+        results["winner"] = {"assignment": best[0],
+                             "wall_s": round(best[1], 3),
+                             "p99_ms": round(best[2], 2)}
+    return results

@@ -82,9 +82,9 @@ BATCH_KNOBS = (
                      "is its intended effect, not a regression"),
 )
 
-# Serve-leg knobs (pbccs_tpu sweeps them with `ccs tune --serveLeg`; the
-# port's serve tier is not there yet, so they are profile-carried only,
-# like router_spill_depth and warmup_buckets).
+# Serve-leg knobs (swept only with `ccs tune --serveLeg`, which drives a
+# real `ccs serve` subprocess per candidate); router_spill_depth and
+# warmup_buckets are profile-carried, not swept.
 SERVE_KNOBS = (
     Knob("serve_max_batch", "profile", "--maxBatch", (8, 16, 32),
          description="serve bucket fill-flush size (ZMWs per batch)"),

@@ -8,8 +8,11 @@ identical report text, a .pbi that reads back to the same holes; plus
 the CLI gates and usage errors, the flags of the resilience and
 observability tiers accepted and acting, bad values of the device
 fleet's and the tuner's flags and the unported parts of the CLI
-rejected with exit 2, and the batch-failure recovery modes (the fleet
-itself: tests/test_torch_sched.py)."""
+rejected with exit 2, the batch-failure recovery modes (the fleet
+itself: tests/test_torch_sched.py), and the band widths the card cannot
+polish at refused with exit 2 by every entry point (checked before a
+card is needed, so device="cuda" runs here) while the CPU polishes at
+any width."""
 
 import json
 import os
@@ -299,10 +302,14 @@ def test_ported_flags_are_accepted_and_act(cases, tmp_path, monkeypatch,
         assert json.load(open(tmp_path / "prof" / trace))["traceEvents"]
 
 
-#: what of each subcommand is not ported: the serve tier's and analyze
-#: whole; of warmup its XLA cache flag, of tune its serve leg
-UNPORTED_SUB = {"warmup": ["--compileCache", "d", "--bucket", "2x3x40"],
-                "tune": ["--serveLeg"]}
+#: what of each subcommand is not ported: the router tier's and analyze
+#: whole; of serve and warmup their XLA cache flag.  tune is ported
+#: whole: its case is a serve-leg grid value that does not parse, a
+#: usage error as every rejection here
+UNPORTED_SUB = {"serve": ["--compileCache", "d"],
+                "warmup": ["--compileCache", "d", "--bucket", "2x3x40"],
+                "tune": ["--serveLeg", "--candidates",
+                         "serve_max_batch=eight"]}
 
 
 @pytest.mark.parametrize("sub", ["serve", "router", "fleet", "warmup",
@@ -418,3 +425,79 @@ def test_launch_counts_survive_concurrent_workers():
         sys.setswitchinterval(old)
     assert not any(t.is_alive() for t in threads)
     assert wrapper.launches == n_threads * per_thread
+
+
+# ------------------------------------------------------------ band width
+
+
+@pytest.mark.parametrize("device", ["cuda", "cuda:1", "cpu"])
+@pytest.mark.parametrize("width", [16, 32, 48, 64, 80, 96, 128, 160, 192,
+                                   224, 256])
+def test_band_width_check(width, device):
+    """On a CUDA device W and 2W must be K1/K3 widths (32, 64, 96, 128
+    allowed); every width passes on the CPU.  A pure function: no card
+    is needed to ask."""
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import (K1_WIDTHS, RUN_WIDTHS,
+                                                 check_band_width)
+
+    assert RUN_WIDTHS == (32, 64, 96, 128)
+    refused = device != "cpu" and not (width in K1_WIDTHS
+                                       and 2 * width in K1_WIDTHS)
+    if refused:
+        with pytest.raises(ValueError, match="32, 64, 96, 128"):
+            check_band_width(width, device)
+    else:
+        check_band_width(width, device)
+
+
+@pytest.mark.parametrize("device", ["cuda", "cpu"])
+@pytest.mark.parametrize("width", [48, 80, 160, 192, 256, 320])
+def test_polisher_width_check(width, device):
+    """One polisher launches at W alone: on a CUDA device W must be a
+    K1/K3 width, refused with LaunchRefused (a ValueError the pipeline
+    does not bisect); every width passes on the CPU."""
+    from pbccs_tpu_torch.device import is_device_error
+    from pbccs_tpu_torch.ops.fwdbwd_cuda import (K1_WIDTHS,
+                                                 check_polisher_width)
+
+    if device == "cuda" and width not in K1_WIDTHS:
+        with pytest.raises(ValueError, match=f"band width {width}") as e:
+            check_polisher_width(width, device)
+        assert is_device_error(e.value)
+    else:
+        check_polisher_width(width, device)
+
+
+@pytest.mark.parametrize("sub", ["ccs", "serve", "warmup", "tune"])
+def test_refused_band_width_exits_2_before_anything(tmp_path, monkeypatch,
+                                                    capsys, sub):
+    """PBCCS_BAND_W=80 (a tune candidate band_w=80 for `ccs tune`) on the
+    card: exit 2 naming the allowed widths, before any record is
+    written."""
+    out = tmp_path / "o.bam"
+    argv = {"ccs": [str(out), str(tmp_path / "missing.fasta")],
+            "serve": ["serve", "--port", "0"],
+            "warmup": ["warmup", "--bucket", "2x3x40"],
+            "tune": ["tune", "--workdir", str(tmp_path / "w"),
+                     "--knobs", "band_w", "--candidates", "band_w=64,80"]}
+    if sub == "tune":
+        monkeypatch.setattr(
+            "pbccs_tpu_torch.tune.driver._run_candidate",
+            lambda *a, **k: pytest.fail("a candidate ran"))
+    else:
+        monkeypatch.setenv("PBCCS_BAND_W", "80")
+    assert run([*argv[sub], "--logLevel", "WARN"], device="cuda") == 2
+    assert "32, 64, 96, 128" in capsys.readouterr().err
+    assert not out.exists() and not (tmp_path / "w").exists()
+
+
+def test_cpu_polishes_at_any_band_width(cases, tmp_path, monkeypatch):
+    """PBCCS_BAND_W=80 is refused on the card only: the CPU run polishes
+    (the plain versions take any W) and writes its records."""
+    monkeypatch.setenv("PBCCS_BAND_W", "80")
+    out = str(tmp_path / "w80.bam")
+    assert run([out, cases["inputs"]["fasta"], "--skipChemistryCheck",
+                "--reportFile", str(tmp_path / "w80.csv"), *COMMON],
+               device="cpu") == 0
+    recs = _records(out)
+    assert recs and all(len(r.seq) > 0 for r in recs)

@@ -608,3 +608,56 @@ def test_read_scorers_card_match_cpu(cuda, quiver):
     got = fn(*args, device=cuda)
     assert kernel.launches == before + 1
     assert abs(got - fn(*args, device="cpu")) <= 1e-4
+
+
+def test_engine_on_cuda_matches_pinned_batch_polish(cuda):
+    """The serve engine on the card (its polish executor thread under
+    cuda:0) against polish_prepared_batch on the card at the flush's
+    pinned (Imax, Jmax, R, Z): byte-equal results, K1 and K3 launched by
+    the engine."""
+    from pbccs_tpu_torch.pipeline import (Chunk, ConsensusSettings, Subread,
+                                          polish_prepared_batch,
+                                          prepare_chunk)
+    from pbccs_tpu_torch.serve.engine import (CcsEngine, ServeConfig,
+                                              flush_buckets)
+
+    rng = np.random.default_rng(31)
+    chunks = []
+    for z in range(3):
+        _, reads, _, snr = simulate_zmw(rng, 300, 5)
+        chunks.append(Chunk(f"s/{z}", [Subread(f"s/{z}/{i}", r)
+                                       for i, r in enumerate(reads)], snr))
+    fills, dense = fc.arrow_fill.launches, ds.dense_score.launches
+    cfg = ServeConfig(max_batch=3, max_wait_ms=60_000.0, prep_workers=1)
+    with CcsEngine(config=cfg) as eng:
+        reqs = [eng.submit(c) for c in chunks]
+        for r in reqs:
+            assert r.wait(600.0) and r.error is None, r.error
+    assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
+    settings = ConsensusSettings()
+    preps = [prepare_chunk(c, settings)[1] for c in chunks]
+    want = polish_prepared_batch(preps, settings,
+                                 buckets=flush_buckets(preps))
+    for r, (failure, result) in zip(reqs, want):
+        assert r.failure == failure
+        assert r.result.sequence == result.sequence
+        np.testing.assert_array_equal(r.result.qvs, result.qvs)
+        assert r.result.predicted_accuracy == result.predicted_accuracy
+
+
+def test_batch_polisher_refuses_an_unbuilt_width_at_construction(cuda):
+    """band_width=80 on the card: ValueError when the BatchPolisher is
+    built, before any launch -- never mid-refine."""
+    from pbccs_tpu_torch.models.arrow.params import (ArrowConfig,
+                                                     BandingOptions)
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher, ZmwTask
+
+    rng = np.random.default_rng(37)
+    tpl, reads, strands, snr = simulate_zmw(rng, 200, 4)
+    task = ZmwTask("w/0", tpl, snr, reads, list(strands),
+                   [0] * len(reads), [len(tpl)] * len(reads))
+    cfg = ArrowConfig(banding=BandingOptions(band_width=80))
+    fills = fc.arrow_fill.launches
+    with pytest.raises(ValueError, match="band width 80"):
+        BatchPolisher([task], config=cfg, device=cuda)
+    assert fc.arrow_fill.launches == fills

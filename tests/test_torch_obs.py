@@ -174,6 +174,50 @@ class TestTrace:
             assert root["ts"] <= c["ts"]
             assert c["ts"] + c["dur"] <= root["ts"] + root["dur"] + 1e-6
 
+    def test_ctx_span_exports_the_trace_identity_as_pbccs_tpu(self):
+        """The wire trace context: a span with an inbound ctx adopts its
+        trace id and records its span id as the remote parent, children
+        inherit the trace id, and the exported args are pbccs_tpu's for
+        the same spans."""
+        from pbccs_tpu.obs import trace as jtrace
+
+        exported = []
+        for mod in (obs_trace, jtrace):
+            tracer = mod.Tracer(tag="t1")
+            with tracer.span("serve.prep",
+                             ctx={"trace_id": "abc", "span_id": "rt-q1"}):
+                with tracer.span("inner") as sp:
+                    ctx = tracer.context_of(sp)
+                    assert tracer.current_span() is sp
+            with tracer.span("untraced") as sp:
+                assert tracer.context_of(sp) is None
+            exported.append([(e["name"], e["args"]) for e in
+                             tracer.to_chrome()["traceEvents"]])
+            assert ctx == {"trace_id": "abc", "span_id": "t1-1"}
+        mine, ref = ([(n, {k: a[k] for k in a if k != "device_wait_ms"})
+                      for n, a in ev] for ev in exported)
+        assert mine == ref
+        assert mine[1][1] == {"parent": 0, "trace_id": "abc",
+                              "span_id": "t1-1"}
+
+    def test_current_context_round_trip(self):
+        tracer = obs_trace.Tracer(tag="cli")
+        prev = obs_trace.set_tracer(None)
+        try:
+            assert obs_trace.current_context() is None  # tracing off
+            assert obs_trace.install_tracer(tracer)
+            assert obs_trace.current_context() is None  # not in a span
+            with obs_trace.span("load", ctx={"trace_id": "t",
+                                             "span_id": None}):
+                ctx = obs_trace.current_context()
+                assert ctx == {"trace_id": "t", "span_id": "cli-0"}
+            assert obs_trace.clear_tracer(tracer)
+        finally:
+            obs_trace.set_tracer(prev)
+        ids = {obs_trace.new_trace_id() for _ in range(64)}
+        assert len(ids) == 64
+        assert all(len(i) == 16 and int(i, 16) >= 0 for i in ids)
+
     def test_device_fetch_attributes_wait(self):
         """timing.device_fetch copies a tensor to the host, counts the
         fetch and its blocking time, and attributes the time to the

@@ -193,9 +193,9 @@ def test_wrappers_reject_unsupported_devices():
 
 def test_port_imports_without_jax():
     """pbccs_tpu_torch (every module, the Quiver path's, the CLI's, its
-    resilience and observability tiers', the device fleet's, the tuner's
-    and the tuner's referee named) and chip_smoke.py import with jax and
-    pbccs_tpu poisoned."""
+    resilience and observability tiers', the device fleet's, the tuner's,
+    the serving tier's and the tuner's referee named) and chip_smoke.py
+    import with jax and pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -225,6 +225,11 @@ def test_port_imports_without_jax():
         "          'tune.profile', 'tune.objective', 'tune.driver',\n"
         "          'tune.cli')}\n"
         "assert fleet <= names, fleet - names\n"
+        "serve = {'pbccs_tpu_torch.' + n for n in\n"
+        "         ('serve', 'serve.protocol', 'serve.batcher',\n"
+        "          'serve.engine', 'serve.tenancy', 'serve.server',\n"
+        "          'serve.client', 'obs.httpexp')}\n"
+        "assert serve <= names, serve - names\n"
         "names.add('pbccs_tpu_torch.tools.perf_gate')\n"
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"

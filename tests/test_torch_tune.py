@@ -1,5 +1,7 @@
 """The port's `ccs tune` batch leg (pbccs_tpu_torch/tune and
-runtime/tuning.py) on the CPU, against pbccs_tpu's.
+runtime/tuning.py) and its serve leg (`--serveLeg`, a `ccs serve`
+subprocess per candidate, here a scripted stand-in) on the CPU, against
+pbccs_tpu's.
 
 Counterparts of tests/test_tune.py's non-serve cases: profiles (round
 trip, fail-open on a missing, corrupt or torn file, fingerprint
@@ -656,16 +658,20 @@ def test_search_defaults_run_failure_is_an_error(tmp_path, monkeypatch,
     assert "error" in summary and "exploded" in summary["error"]
 
 
-@pytest.mark.parametrize("argv", [["--serveLeg"], ["--knobs", "mystery"],
+@pytest.mark.parametrize("argv", [["--serveLeg", "--candidates",
+                                   "serve_max_batch=eight"],
+                                  ["--knobs", "mystery"],
                                   ["--candidates", "band_w"],
                                   ["--set", "mystery=1"]],
                          ids=["serveLeg", "knobs", "candidates", "set"])
 def test_tune_cli_usage_errors_exit_2(argv, capsys):
+    """Usage errors exit 2 before any candidate runs, a serve-leg knob's
+    value that does not parse among them."""
     from pbccs_tpu_torch.cli import run
 
     assert run(["tune", *argv, "--logLevel", "WARN"], device="cpu") == 2
     err = capsys.readouterr().err
-    assert ("serve tier" in err) == (argv[0] == "--serveLeg")
+    assert ("serve_max_batch=eight" in err) == (argv[0] == "--serveLeg")
 
 
 def test_tune_cli_prints_one_summary(tmp_path, monkeypatch, capsys):
@@ -722,3 +728,96 @@ def test_referee_gives_the_gates_verdict(drift, ignore, expected):
     assert {v["metric"] for v in got[0]} == expected
     if ignore:
         assert any("exempted" in n for n in got[1])
+
+
+# ------------------------------------------------------------- serve leg
+
+class FakeServe:
+    """Stands in for driver._serve_candidate: (digest, wall s, p99 ms)
+    or a failure string per serve-knob assignment."""
+
+    def __init__(self, table):
+        self.table = table
+        self.calls = []
+
+    def __call__(self, cfg, assignment, calib):
+        self.calls.append(dict(assignment))
+        return self.table.get(driver.assignment_key(assignment),
+                              self.table.get("*"))
+
+
+def test_serve_leg_picks_the_fastest_identical_candidate(tmp_path,
+                                                         monkeypatch):
+    fake = FakeServe({
+        driver.assignment_key({}): ("d", 10.0, 500.0),
+        driver.assignment_key({"serve_max_batch": 8}): ("d", 8.0, 300.0),
+        driver.assignment_key({"serve_max_batch": 16}): ("d", 10.0, 400.0),
+        driver.assignment_key({"serve_max_batch": 32}): ("d", 6.0, 900.0),
+        driver.assignment_key({"serve_max_wait_ms": 100.0}):
+            ("OTHER", 1.0, 1.0),
+        driver.assignment_key({"serve_max_wait_ms": 250.0}):
+            "serve exited or never printed CCS-SERVE-READY"})
+    monkeypatch.setattr(driver, "_serve_candidate", fake)
+    won: dict = {}
+    res = driver.run_serve_leg(tune_cfg(tmp_path, []), won)
+    # the whole serve grid, the defaults first
+    assert fake.calls == [{}, {"serve_max_batch": 8},
+                          {"serve_max_batch": 16},
+                          {"serve_max_batch": 32},
+                          {"serve_max_wait_ms": 100.0},
+                          {"serve_max_wait_ms": 250.0}]
+    assert won == {"serve_max_batch": 32}
+    assert res["winner"]["assignment"] == {"serve_max_batch": 32}
+    assert res["baseline"] == {"wall_s": 10.0, "p99_ms": 500.0}
+    reasons = {json.dumps(r["assignment"]): r["reason"]
+               for r in res["rejected"]}
+    assert reasons == {
+        '{"serve_max_wait_ms": 100.0}': "served output differs from "
+                                        "defaults",
+        '{"serve_max_wait_ms": 250.0}': "serve exited or never printed "
+                                        "CCS-SERVE-READY"}
+
+
+def test_serve_leg_defaults_failure_is_an_error(tmp_path, monkeypatch):
+    monkeypatch.setattr(driver, "_serve_candidate",
+                        FakeServe({driver.assignment_key({}): "boom"}))
+    won: dict = {}
+    res = driver.run_serve_leg(tune_cfg(tmp_path, []), won)
+    assert res["error"] == "serve defaults run failed: boom" and not won
+
+
+def test_serve_command_maps_knobs_to_serve_flags():
+    cmd = driver.serve_command({"serve_max_wait_ms": 100.0,
+                                "serve_max_batch": 8})
+    assert cmd[1:4] == ["-m", "pbccs_tpu_torch.cli", "serve"]
+    assert cmd[-4:] == ["--maxBatch", "8", "--maxWaitMs", "100.0"]
+    assert [k.target for k in space.SERVE_KNOBS] == \
+        ["--maxBatch", "--maxWaitMs"]
+
+
+def test_tune_cli_serve_leg_merges_its_winner(tmp_path, monkeypatch,
+                                               capsys):
+    """`ccs tune --serveLeg`: the batch leg ships, then the serve leg's
+    winner is merged into the shipped profile."""
+    from pbccs_tpu_torch.cli import run
+
+    monkeypatch.setattr(driver, "_run_candidate", FakeRunner({
+        driver.assignment_key({}): {"zps": 10.0},
+        driver.assignment_key({"prepare_workers": 2}): {"zps": 13.0}}))
+    monkeypatch.setattr(driver, "_serve_candidate", FakeServe({
+        driver.assignment_key({}): ("d", 10.0, 500.0),
+        driver.assignment_key({"serve_max_batch": 8}): ("d", 7.0, 400.0),
+        "*": ("d", 9.0, 400.0)}))
+    out = str(tmp_path / "p.json")
+    assert run(["tune", "--out", out, "--workdir", str(tmp_path / "w"),
+                "--zmws", "2", "--passes", "3", "--tplLen", "40",
+                "--knobs", "prepare_workers",
+                "--candidates", "prepare_workers=2", "--serveLeg",
+                "--logLevel", "WARN"], device="cpu") == 0
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert summary["serve_leg"]["winner"]["assignment"] == \
+        {"serve_max_batch": 8}
+    prof, _ = load_profile(out)
+    assert prof.knobs == {"prepare_workers": 2, "serve_max_batch": 8,
+                          "warmup_buckets": ["2x3x40"]}
+    assert summary["profile_id"] == prof.profile_id
