@@ -171,6 +171,42 @@ script exits non-zero):
      answered, exit 0, a final serve_snapshot record; and
      `PBCCS_BAND_W=80 ... serve` exiting 2 with the allowed widths
      named.
+ 16. router: two `python -m pbccs_tpu_torch.cli serve` replicas (A, B)
+     started together on cuda:0 (phase 15's max_batch, max_wait and one
+     prep thread, --perfLedger), then `... router --replica A --replica
+     B --port 0 --metricsPort -1 --perfLedger ... --routerBenchAfter 1`
+     in front.  Phase 10's gated ZMWs through the port's CcsClient, each
+     request's trace id its ZMW id, inside a span capture started and
+     stopped through the router (the `trace` verb fans out to both
+     replicas) and merged by pbccs_tpu_torch/tools/trace_merge.py: every
+     reply byte-equal to polish_prepared_batch at its replica's flush
+     (from the serve.polish spans), against phase 10's record the same
+     sequence with QVs within 1 (the count that differ in bytes
+     printed), each router.request span the remote parent of spans on
+     the one replica it names, in one connected tree; requests routed
+     per replica.  The router's /metrics holds each replica's ccs_serve_*
+     series under replica="host:port" beside the ccs_router_* series; its
+     ledger a router_snapshot and per replica a replica_snapshot whose
+     source record says platform "gpu".  nvidia-smi's compute apps (or,
+     where its process list shows none of this sandbox's pids, the
+     /dev/nvidia<N> files each process holds open): both replicas hold a
+     context, the router none.  The same ZMWs again on a raw session,
+     and replica B SIGKILLed once the router has routed to it, while its
+     batch waits for company: every request answered exactly once (no
+     duplicate frame within DUP_GRACE_S after the last), failovers >= 1,
+     B unhealthy, A's replies byte-equal to its flushes and on the
+     parity standard; the pass walls and latencies beside phase 15's
+     direct ones.  `ccs top --once --format json` against the router
+     (A with a rate, B absent) and `ccs roofline --target A` exit 0;
+     router and A drain to exit 0.  Then `... fleet --replicas 2 --port
+     0 --perfLedger ...` (its children flush after FLEET_WAIT_MS) under
+     PBCCS_FAULTS=serve.start:crashloop=1~1: slot 1's first child dies
+     with exit 86 and is respawned (its death to re-added time
+     printed), both slots up, FLEET_ZMWS ZMWs answered, `ccs fleet
+     restart` under a second stream of FLEET_ZMWS losing none
+     (each slot's incarnation bumped, rolling_restart_begin / _done in
+     the ledger), the fleet's control process holding no context, and
+     SIGTERM: exit 0 with no child left.
 Then each phase's seconds as one JSON line, the card's name and power
 limit, the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -1921,11 +1957,12 @@ def _wire_record(reply) -> tuple:
                                         "avg_zscore", "draft_only"))
 
 
-def _serve_pass(client, chunks, trace: bool) -> dict:
+def _serve_pass(client, chunks, trace: bool, engine: bool = True) -> dict:
     """Every chunk submitted at once through the port's client (its ZMW
     id as the request's trace id), every reply awaited (bounded): the
-    replies by ZMW id, the pass's wall, its first reply's latency (the
-    first flush's completion), client-side latency percentiles and the
+    replies and their arrival times by ZMW id, the pass's wall, its first
+    reply's latency (the first flush's completion), client-side latency
+    percentiles and, with `engine` (an engine in this process), the
     engine's ccs_serve_request_latency_seconds p50/p99 over the pass."""
     from pbccs_tpu_torch.obs.metrics import (default_registry,
                                              histogram_quantile)
@@ -1947,17 +1984,20 @@ def _serve_pass(client, chunks, trace: bool) -> dict:
                 arrival[zid] = time.monotonic() - t0
         time.sleep(0.001)
     replies = {zid: h.reply(0.0, check=False) for zid, h in handles}
-    counts, _sum, n = scope.delta()[(_m_latency.name, ())]
     lat = np.array(sorted(arrival.values())) * 1e3
-    return {"replies": replies, "wall_s": max(arrival.values()),
-            "first_reply_s": min(arrival.values()),
-            "client_latency_ms_p50": float(np.percentile(lat, 50)),
-            "client_latency_ms_p99": float(np.percentile(lat, 99)),
-            "engine_requests": n,
-            "engine_latency_s_p50_le": histogram_quantile(
-                counts, _m_latency.bounds, 0.50),
-            "engine_latency_s_p99_le": histogram_quantile(
-                counts, _m_latency.bounds, 0.99)}
+    out = {"replies": replies, "arrival_s": arrival,
+           "wall_s": max(arrival.values()),
+           "first_reply_s": min(arrival.values()),
+           "client_latency_ms_p50": float(np.percentile(lat, 50)),
+           "client_latency_ms_p99": float(np.percentile(lat, 99))}
+    if engine:
+        counts, _sum, n = scope.delta()[(_m_latency.name, ())]
+        out.update(engine_requests=n,
+                   engine_latency_s_p50_le=histogram_quantile(
+                       counts, _m_latency.bounds, 0.50),
+                   engine_latency_s_p99_le=histogram_quantile(
+                       counts, _m_latency.bounds, 0.99))
+    return out
 
 
 def _serve_child(argv, env=None):
@@ -2105,7 +2145,8 @@ def phase_serve(cli_out, fleet_out) -> dict:
         ledger_record={k: snap.get(k) for k in (
             "kind", "platform", "completed", "errors", "polish_dispatches",
             "refine_rounds_device", "device_fetches", "uptime_s")},
-        passes=[{k: v for k, v in p.items() if k != "replies"}
+        passes=[{k: v for k, v in p.items()
+                 if k not in ("replies", "arrival_s")}
                 for p in (first, second)],
         phase13_fresh_first_batch_s=[f["first_batch_s"]
                                      for f in fleet_out["fresh_ccs"]],
@@ -2226,6 +2267,697 @@ def phase_serve(cli_out, fleet_out) -> dict:
     return out
 
 
+#: phase 16's tier: the router's health cadence, the fleet's ZMWs per
+#: stream and its children's flush wait (the replicas A and B flush as
+#: phase 15's engine), and the bounds of a child's start and of the
+#: waits on the tier
+ROUTER_HEALTH_S = 0.5
+FLEET_ZMWS = 8
+FLEET_WAIT_MS = 500.0
+TIER_READY_S = 300.0
+TIER_WAIT_S = 180.0
+#: how long a raw session keeps reading after its last expected reply,
+#: so a duplicate reply frame would be seen
+DUP_GRACE_S = 1.0
+
+
+def _ccs_child(sub, argv, log_path, env=None):
+    """`python -m pbccs_tpu_torch.cli SUB ARGV` started from the
+    checkout: stdout on a pipe whose lines a thread collects into
+    `proc.lines` as (time read, line), stderr to `log_path`."""
+    import os
+    import threading
+
+    err = open(log_path, "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", sub, *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=err, text=True, env=env)
+    err.close()
+    proc.lines = []
+    proc.log_path = log_path
+    threading.Thread(target=lambda: proc.lines.extend(
+        (time.monotonic(), line) for line in proc.stdout),
+        daemon=True).start()
+    return proc
+
+
+def _until(fn, timeout_s: float, what: str, step: float = 0.05):
+    """fn()'s first truthy value within timeout_s, else AssertionError."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = fn()
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"router: {what} not within {timeout_s} s")
+        time.sleep(step)
+
+
+def _ready(proc, tag: str, timeout_s: float) -> tuple[str, int, float]:
+    """The (host, port) of a child's `TAG host port` line and when it was
+    read; fails with the tail of its stderr when the child exits or stays
+    silent first."""
+    def line():
+        for t, ln in list(proc.lines):
+            parts = ln.split()
+            if len(parts) == 3 and parts[0] == tag:
+                return parts[1], int(parts[2]), t
+        if proc.poll() is not None:
+            raise AssertionError(
+                f"router: child exited {proc.returncode} before {tag}: "
+                f"{open(proc.log_path).read()[-2000:]}")
+        return None
+
+    return _until(line, timeout_s, tag)
+
+
+def _stop_child(proc, sig=15, timeout_s: float = 120.0):
+    """Signal a child, wait for it (bounded; SIGKILL past the bound) and
+    return its exit code."""
+    if proc.poll() is None:
+        proc.send_signal(sig)
+    try:
+        return proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=30.0)
+        return None
+
+
+def _wire_pass(host, port, chunks, trace: bool, during=None) -> dict:
+    """Every chunk submitted at once on one raw NDJSON session (the
+    frames CcsClient.submit_chunk sends; request id = ZMW id, with
+    `trace` the trace id too), then `during()` while replies arrive;
+    every frame read until each id has one and DUP_GRACE_S more, so a
+    duplicate reply is seen (the client drops those): the first reply
+    per id, the duplicate frames, the pass wall and latency
+    percentiles."""
+    import socket
+    import threading
+
+    from pbccs_tpu_torch.serve import protocol
+
+    sock = socket.create_connection((host, port), timeout=30.0)
+    sock.settimeout(None)
+    frames: list = []
+
+    def read():
+        with sock.makefile("rb") as rf:
+            for line in rf:
+                if line.strip():
+                    frames.append((time.monotonic(),
+                                   protocol.decode_line(line)))
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    want = {c.id for c in chunks}
+    t0 = time.monotonic()
+    try:
+        for c in chunks:
+            msg = {"verb": protocol.VERB_SUBMIT, "id": c.id,
+                   "zmw": protocol.chunk_to_wire(c)}
+            if trace:
+                msg[protocol.FIELD_TRACE] = {"trace_id": c.id,
+                                             "span_id": None}
+            sock.sendall(protocol.encode_msg(msg))
+        during_out = during() if during is not None else None
+        _until(lambda: want <= {m.get("id") for _, m in list(frames)},
+               600.0, "every reply of the pass", step=0.001)
+        time.sleep(DUP_GRACE_S)
+    finally:
+        sock.close()
+        reader.join(timeout=10.0)
+    replies, arrival, dup = {}, {}, []
+    for t, m in frames:
+        rid = m.get("id")
+        if rid in replies:
+            dup.append(rid)
+        else:
+            replies[rid], arrival[rid] = m, t - t0
+    lat = np.array(sorted(arrival.values())) * 1e3
+    return {"replies": replies, "arrival_s": arrival, "duplicates": dup,
+            "frames": len(frames), "during": during_out,
+            "wall_s": max(arrival.values()),
+            "first_reply_s": min(arrival.values()),
+            "client_latency_ms_p50": float(np.percentile(lat, 50)),
+            "client_latency_ms_p99": float(np.percentile(lat, 99))}
+
+
+def _flushes_of(chrome, prep_by_id, order, polish) -> tuple[list, dict]:
+    """A replica's flushes from the serve.polish spans of its capture
+    (members by trace id = ZMW id, reason, (Imax, Jmax, R, Z)), and each
+    flush's ZMWs polished again by `polish` (polish_prepared_batch) at
+    those shapes: the wire record each ZMW must have."""
+    from pbccs_tpu_torch.serve import protocol
+    from pbccs_tpu_torch.serve.engine import flush_buckets
+
+    flushes, records = [], {}
+    for ev in sorted((e for e in chrome["traceEvents"]
+                      if e.get("name") == "serve.polish"),
+                     key=lambda e: e["ts"]):
+        ids = sorted(ev["args"]["trace_ids"], key=order.get)
+        preps = [prep_by_id[i] for i in ids]
+        shapes = flush_buckets(preps)
+        flushes.append({"zmws": ev["args"]["zmws"],
+                        "reason": ev["args"]["reason"],
+                        "shapes": list(shapes),
+                        "polish_ms": ev["dur"] / 1e3})
+        for i, (failure, result) in zip(ids, polish(preps, buckets=shapes)):
+            records[i] = _wire_record(protocol.result_to_wire(
+                None, i, failure, result, 0.0))
+    return flushes, records
+
+
+def _against_phase10(replies, want, truth_by_id) -> dict:
+    """Served records against phase 10's: the same sequence with QVs
+    within 1 (the parity standard), with the count that differ in
+    bytes; a Success phase 10 has no record of is a failure.  A record
+    off the standard is described: edit distance to phase 10's, the
+    largest QV difference, both predicted accuracies and both
+    identities to the simulated truth."""
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.serve import protocol
+
+    byte_equal = parity = differ = 0
+    bad = []
+    for zid, reply in replies.items():
+        ref = want.get(zid)
+        if ref is None:
+            if reply.get("status") == "Success":
+                bad.append(f"{zid}: served Success, phase 10 no record")
+            continue
+        expect = protocol.result_to_wire(None, zid, tp.Failure.SUCCESS, ref,
+                                         0.0)
+        if _wire_record(reply) == _wire_record(expect):
+            byte_equal += 1
+            continue
+        differ += 1
+        qv = np.frombuffer(reply.get("qual", "").encode(), np.uint8)
+        qr = np.frombuffer(expect["qual"].encode(), np.uint8)
+        if reply.get("sequence") == ref.sequence and len(qv) == len(qr) \
+                and np.abs(qv.astype(int) - qr.astype(int)).max() <= 1:
+            parity += 1
+            continue
+        seq = reply.get("sequence") or ""
+        bad.append({
+            "zmw": zid, "status": reply.get("status"),
+            "edit_distance": edit_distance(seq, ref.sequence),
+            "qv_max_diff": int(np.abs(qv.astype(int) - qr.astype(int))
+                               .max()) if len(qv) == len(qr) else None,
+            "predicted_accuracy": [reply.get("predicted_accuracy"),
+                                   float(ref.predicted_accuracy)],
+            "identity": [identity(seq, truth_by_id[zid]),
+                         identity(ref.sequence, truth_by_id[zid])]})
+    return {"byte_equal": byte_equal, "parity_only": parity,
+            "differ_in_bytes": differ, "failures": bad,
+            "ok": not bad and byte_equal + parity == len(want)
+            and sum(r.get("status") == "Success"
+                    for r in replies.values()) == len(want)}
+
+
+def _span_links(merged) -> dict:
+    """Each router.request span of a merged fleet trace against the
+    replica spans naming its pinned span id as their remote parent: the
+    count whose children exist, share its trace id and lie in one
+    replica process (the replica the router named), and whose trace is
+    one connected tree."""
+    from pbccs_tpu_torch.tools import trace_merge
+
+    names = {ev["pid"]: ev["args"]["name"] for ev in merged["traceEvents"]
+             if ev.get("ph") == "M" and ev.get("name") == "process_name"}
+    children: dict = {}
+    for ev in merged["traceEvents"]:
+        rp = (ev.get("args") or {}).get("remote_parent")
+        if rp is not None:
+            children.setdefault(rp, []).append(ev)
+    trees = trace_merge.request_trees(merged)
+    linked, bad = 0, []
+    for ev in merged["traceEvents"]:
+        if ev.get("name") != "router.request":
+            continue
+        a = ev["args"]
+        kids = children.get(a.get("span_id"), [])
+        pids = {k["pid"] for k in kids}
+        ok = (kids and len(pids) == 1
+              and all(k["args"].get("trace_id") == a.get("trace_id")
+                      for k in kids)
+              and names.get(next(iter(pids))) == f"replica {a.get('replica')}"
+              and trees.get(a.get("trace_id"), {}).get("components") == 1)
+        if ok:
+            linked += 1
+        else:
+            bad.append(a.get("trace_id"))
+    return {"router_spans": linked + len(bad), "linked": linked,
+            "unlinked": bad[:8]}
+
+
+def _card_contexts(pids: dict) -> dict:
+    """Which of `pids` ({role: pid}) hold a CUDA context, by `nvidia-smi
+    --query-compute-apps=pid,used_memory`; where the card's process list
+    shows none of this sandbox's pids (another pid namespace), by the
+    /dev/nvidia<N> device files each process holds open instead."""
+    import os
+
+    out = {"method": "nvidia-smi", "apps": {}}
+    try:
+        q = subprocess.run(
+            ["nvidia-smi", "--query-compute-apps=pid,used_memory",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60)
+        for line in q.stdout.splitlines():
+            pid, _, mem = line.partition(",")
+            if pid.strip().isdigit():
+                out["apps"][int(pid)] = mem.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        out["error"] = repr(e)
+    mine = set(pids.values())
+    if mine & set(out["apps"]):
+        out["holds"] = {role: pid in out["apps"]
+                        for role, pid in pids.items()}
+        out["used_memory"] = {role: out["apps"].get(pid)
+                              for role, pid in pids.items()}
+    else:
+        out["method"] = "/proc fds"
+        holds = {}
+        for role, pid in pids.items():
+            try:
+                fds = [os.readlink(f"/proc/{pid}/fd/{fd}")
+                       for fd in os.listdir(f"/proc/{pid}/fd")]
+            except OSError:
+                fds = []
+            holds[role] = any(f.startswith("/dev/nvidia")
+                              and f[len("/dev/nvidia"):].isdigit()
+                              for f in fds)
+        out["holds"] = holds
+    out["apps"] = {str(k): v for k, v in out["apps"].items()}
+    return out
+
+
+def _alive(pid: int) -> bool:
+    """True while `pid` runs (a zombie counts as gone)."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except (OSError, IndexError):
+        return False
+
+
+def _cli(argv) -> tuple[int, str]:
+    """The port's CLI in this process: (exit code, standard output)."""
+    import contextlib
+    import io
+
+    from pbccs_tpu_torch.cli import run
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = run(list(argv))
+        except SystemExit as e:
+            rc = e.code
+    return rc, buf.getvalue()
+
+
+def phase_router(cli_out, serve_out, truth_by_id) -> dict:
+    """`ccs router`, `ccs top`, `ccs roofline --target` and `ccs fleet`
+    over `ccs serve` replicas on the card (see the module docstring)."""
+    import os
+    import shutil
+
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.obs.ledger import read_ledger
+    from pbccs_tpu_torch.obs.metrics import parse_exposition
+    from pbccs_tpu_torch.serve import protocol
+    from pbccs_tpu_torch.serve.client import CcsClient
+    from pbccs_tpu_torch.tools import trace_merge
+
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "router_smoke")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    chunks = [c for b in cli_out["batches"] for c in b]
+    order = {c.id: i for i, c in enumerate(chunks)}
+    prep_by_id = {p.chunk.id: p for batch in cli_out["batches"]
+                  for p in tp.prepare_batch(batch)[1]}
+    want = {r.id: r for r in cli_out["results"]}
+    polish = tp.polish_prepared_batch
+    out = {"phase": "router", "card": card_line(), "zmws": len(chunks)}
+    procs = []
+    fail = []
+
+    def check(ok, what):
+        if not ok:
+            fail.append(what)
+
+    try:
+        # two replicas started together, then the router in front
+        t0 = time.monotonic()
+        reps = {}
+        for tag in ("A", "B"):
+            reps[tag] = _ccs_child("serve", [
+                "--port", "0", "--maxBatch", str(SERVE_BATCH),
+                "--maxWaitMs", str(SERVE_WAIT_MS), "--prepWorkers", "1",
+                "--perfLedger", os.path.join(d, f"replica_{tag}.ndjson"),
+                "--perfLedgerInterval", "1", "--logLevel", "WARN"],
+                os.path.join(d, f"replica_{tag}.err"))
+            procs.append(reps[tag])
+        addr, ready_s = {}, {}
+        for tag, p in reps.items():
+            host, port, t = _ready(p, "CCS-SERVE-READY", TIER_READY_S)
+            addr[tag] = f"{host}:{port}"
+            ready_s[tag] = t - t0
+        name_of = {v: k for k, v in addr.items()}
+        t1 = time.monotonic()
+        router_ledger = os.path.join(d, "router.ndjson")
+        router = _ccs_child("router", [
+            "--replica", addr["A"], "--replica", addr["B"], "--port", "0",
+            "--metricsPort", "-1", "--perfLedger", router_ledger,
+            "--perfLedgerInterval", "1", "--routerHealthInterval",
+            str(ROUTER_HEALTH_S), "--routerBenchAfter", "1",
+            "--logLevel", "WARN"], os.path.join(d, "router.err"))
+        procs.append(router)
+        rhost, rport, t = _ready(router, "CCS-ROUTER-READY", TIER_READY_S)
+        mhost, mport, _ = _ready(router, "CCS-METRICS-READY", 10.0)
+        out["ready_s"] = {"A": ready_s["A"], "B": ready_s["B"],
+                          "router": t - t1}
+        status = None
+        with CcsClient(rhost, rport, timeout=600.0) as cli:
+            _until(lambda: all(r["connected"] and r["healthy"]
+                               for r in cli.status()["replicas"]),
+                   60.0, "both replicas connected")
+
+            # ---- 1. records through the router, traced
+            assert cli.trace("start")["state"] == "started"
+            first = _serve_pass(cli, chunks, trace=True, engine=False)
+            bundle = cli.trace("stop")
+            status = cli.status()
+        out["routed"] = {name_of[r["replica"]]: r["routed"]
+                         for r in status["replicas"]}
+        check(sorted(bundle.get("replicas", {})) == sorted(addr.values()),
+              "trace stop did not bring both replicas' captures")
+        merged = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+        served_by = {e["args"]["trace_id"]: e["args"]["replica"]
+                     for e in bundle["trace"]["traceEvents"]
+                     if e.get("name") == "router.request"}
+        flushes, at_shapes = {}, {}
+        for name, chrome in bundle.get("replicas", {}).items():
+            fl, recs = _flushes_of(chrome, prep_by_id, order, polish)
+            flushes[name_of[name]] = fl
+            at_shapes.update(recs)
+        same = sum(_wire_record(first["replies"][i]) == rec
+                   for i, rec in at_shapes.items())
+        p10 = _against_phase10(first["replies"], want, truth_by_id)
+        links = _span_links(merged)
+        first_reply = {}
+        for zid, t in first["arrival_s"].items():
+            tag = name_of.get(served_by.get(zid))
+            if tag is not None:
+                first_reply[tag] = min(first_reply.get(tag, t), t)
+        out["pass1"] = {
+            "flushes": flushes, "flushed_zmws": len(at_shapes),
+            "same_as_batch_path_at_flush_shapes": same,
+            **{k: v for k, v in p10.items() if k != "ok"},
+            "span_links": links, "first_reply_s": first_reply,
+            **{k: first[k] for k in ("wall_s", "client_latency_ms_p50",
+                                     "client_latency_ms_p99")}}
+        check(same == len(at_shapes) == len(prep_by_id),
+              "pass 1: replies unlike polish_prepared_batch at the "
+              "replicas' flush shapes")
+        check(p10["ok"], f"pass 1: records unlike phase 10's: "
+              f"{p10['failures']}")
+        check(links["linked"] == len(chunks) == links["router_spans"],
+              f"router.request spans not linked to one replica: {links}")
+
+        # ---- 2. federation: /metrics and the fleet ledger
+        _, body = _http_get(mhost, mport, "/metrics")
+        fed = parse_exposition(body.decode())
+        labelled = {tag: sum(1 for (n, lab) in fed
+                             if dict(lab).get("replica") == a
+                             and n.startswith("ccs_serve_"))
+                    for tag, a in addr.items()}
+        router_series = sorted({n for n, _ in fed
+                                if n.startswith("ccs_router_")})
+        led = _until(lambda: _fleet_records(read_ledger(router_ledger)[0],
+                                            addr.values()),
+                     60.0, "router_snapshot + a gpu replica_snapshot each")
+        out["federation"] = {"replica_series": labelled,
+                             "router_series": router_series,
+                             "ledger": led}
+        check(all(labelled.values()) and "ccs_router_routed_total"
+              in router_series, "federated /metrics incomplete")
+
+        # ---- the card: replicas hold a context, the router none
+        card = _card_contexts({"A": reps["A"].pid, "B": reps["B"].pid,
+                               "router": router.pid})
+        out["card_contexts"] = card
+        check(card["holds"] == {"A": True, "B": True, "router": False},
+              f"CUDA contexts: {card['holds']}")
+
+        # ---- 3. failover: the same ZMWs again; SIGKILL B once the router
+        # has routed to it and before it answered (its batch waits for
+        # company)
+        def kill_b():
+            with CcsClient(rhost, rport, timeout=60.0) as watch:
+                row = _until(lambda: next(
+                    (r for r in watch.status()["replicas"]
+                     if r["replica"] == addr["B"] and r["inflight"] > 0),
+                    None), 60.0, "a request routed to B", step=0.002)
+            os.kill(reps["B"].pid, 9)
+            return {"b_inflight_at_kill": row["inflight"],
+                    "b_routed_at_kill": row["routed"]}
+
+        with CcsClient(rhost, rport, timeout=600.0) as cli:
+            assert cli.trace("start")["state"] == "started"
+        second = _wire_pass(rhost, rport, chunks, trace=True, during=kill_b)
+        with CcsClient(rhost, rport, timeout=600.0) as cli:
+            bundle2 = cli.trace("stop")
+            status2 = cli.status()
+        _, body2 = _http_get(mhost, mport, "/metrics")
+        failovers = sum(v for (n, _), v in
+                        parse_exposition(body2.decode()).items()
+                        if n == "ccs_router_failovers_total")
+        b_row = next(r for r in status2["replicas"]
+                     if r["replica"] == addr["B"])
+        served_by2 = {e["args"]["trace_id"]: e["args"]["replica"]
+                      for e in bundle2["trace"]["traceEvents"]
+                      if e.get("name") == "router.request"}
+        fl_a, at_a = _flushes_of(bundle2["replicas"].get(addr["A"], {
+            "traceEvents": []}), prep_by_id, order, polish)
+        # A's replies of ZMWs that reached a polish (the rest failed a
+        # gate before the batcher)
+        from_a = [z for z, r in served_by2.items()
+                  if r == addr["A"] and z in prep_by_id]
+        same_a = sum(_wire_record(second["replies"][z]) == at_a.get(z)
+                     for z in from_a)
+        p10b = _against_phase10(second["replies"], want, truth_by_id)
+        out["pass2"] = {
+            **second["during"], "replies": len(second["replies"]),
+            "frames": second["frames"], "duplicates": second["duplicates"],
+            "errors": sorted(z for z, m in second["replies"].items()
+                             if m.get("type") != "result"),
+            "failovers_total": failovers,
+            "b_status": {k: b_row[k] for k in ("connected", "healthy")},
+            "replicas_in_stop_bundle": sorted(name_of[n] for n in
+                                              bundle2["replicas"]),
+            "served_by": {t: sum(1 for r in served_by2.values()
+                                 if r == a) for t, a in addr.items()},
+            "a_flushes": fl_a, "a_same_at_flush_shapes": same_a,
+            **{k: v for k, v in p10b.items() if k != "ok"},
+            **{k: second[k] for k in ("wall_s", "first_reply_s",
+                                      "client_latency_ms_p50",
+                                      "client_latency_ms_p99")}}
+        out["phase15_direct"] = {k: serve_out["passes"][0][k] for k in (
+            "wall_s", "first_reply_s", "client_latency_ms_p50",
+            "client_latency_ms_p99")}
+        check(len(second["replies"]) == len(chunks)
+              and set(second["replies"]) == set(order)
+              and not second["duplicates"]
+              and not out["pass2"]["errors"],
+              "pass 2: not every request answered exactly once")
+        check(failovers >= 1 and b_row["healthy"] is False
+              and b_row["connected"] is False,
+              f"pass 2: failovers {failovers}, B {b_row}")
+        check(same_a == len(from_a) > 0 and p10b["ok"],
+              f"pass 2: A's replies unlike its flushes or phase 10 "
+              f"({same_a} of {len(from_a)}; {p10b['failures']})")
+
+        # ---- 4. ccs top and ccs roofline --target
+        rc, text = _cli(["top", f"{rhost}:{rport}", "--once", "--format",
+                         "json", "--interval", "1"])
+        view = json.loads(text) if rc == 0 else {}
+        rows = {name_of.get(r["replica"]): r
+                for r in view.get("replicas", ())}
+        out["top"] = {"exit_code": rc, "rows": {
+            t: {k: r.get(k) for k in ("absent", "completed",
+                                      "throughput_zmws_per_sec")}
+            for t, r in rows.items()}}
+        check(rc == 0 and rows.get("A", {}).get("absent") is False
+              and rows["A"].get("throughput_zmws_per_sec") is not None
+              and rows.get("B", {}).get("absent") is True,
+              f"ccs top: {out['top']}")
+        rc, text = _cli(["roofline", "--target", addr["A"], "--format",
+                         "json"])
+        doc = json.loads(text) if rc == 0 else {}
+        out["roofline"] = {"exit_code": rc, "source": doc.get("source"),
+                           "rows": [{k: r.get(k) for k in (
+                               "bucket", "flops", "dispatches", "refine_s",
+                               "achieved_tflops", "efficiency")}
+                               for r in doc.get("rows", ())]}
+        check(rc == 0 and doc.get("source") == "status" and doc["rows"],
+              f"ccs roofline --target: {out['roofline']}")
+        out["router_exit_code"] = _stop_child(router)
+        out["replica_a_exit_code"] = _stop_child(reps["A"])
+        check(out["router_exit_code"] == 0
+              and out["replica_a_exit_code"] == 0,
+              "router or replica A did not drain to exit 0")
+
+        # ---- 5. ccs fleet: a crash-looped slot respawned, a rolling
+        # restart under traffic, SIGTERM
+        fleet_ledger = os.path.join(d, "fleet.ndjson")
+        env = dict(os.environ, PBCCS_FAULTS="serve.start:crashloop=1~1")
+        t2 = time.monotonic()
+        fleet = _ccs_child("fleet", [
+            "--replicas", "2", "--port", "0", "--perfLedger", fleet_ledger,
+            "--routerHealthInterval", str(ROUTER_HEALTH_S),
+            f"--serveArg=--maxWaitMs={FLEET_WAIT_MS}",
+            "--serveArg=--prepWorkers=1", "--logLevel", "WARN"],
+            os.path.join(d, "fleet.err"), env=env)
+        procs.append(fleet)
+        fhost, fport, _ = _ready(fleet, "CCS-FLEET-READY", TIER_READY_S)
+
+        def supervisor():
+            with CcsClient(fhost, fport, timeout=60.0) as c:
+                return c.status()[protocol.FIELD_SUPERVISOR]
+
+        def slots_up():
+            block = supervisor()
+            slots = block["slots"]
+            if any(s["state"] == "dead" for s in slots):
+                raise AssertionError(f"router: a fleet slot is "
+                                     f"quarantined: {slots}")
+            return block if [s["state"] for s in slots] == ["up", "up"] \
+                else None
+
+        try:
+            block = _until(slots_up, TIER_WAIT_S, "both fleet slots up",
+                           step=0.2)
+        except AssertionError:
+            raise AssertionError(f"router: fleet slots: "
+                                 f"{supervisor()['slots']}") from None
+        fleet_up_s = time.monotonic() - t2
+        events = block["events"]
+        death = next(e for e in events if e["event"] == "respawn"
+                     and e.get("slot") == 1)
+        readd = next(e for e in events if e["event"] == "add"
+                     and e.get("slot") == 1
+                     and e["t_event"] >= death["t_event"])
+        slots0 = {s["slot"]: s for s in block["slots"]}
+        first8 = _wire_pass(fhost, fport, chunks[:FLEET_ZMWS], trace=False)
+        # a replica's CUDA context comes with its first polish, so read
+        # the card after the first stream (an idle slot may hold none)
+        card2 = _card_contexts({"fleet": fleet.pid,
+                                **{f"slot{s}": v["pid"]
+                                   for s, v in slots0.items()}})
+
+        def restart():
+            t = time.monotonic()
+            rc, text = _cli(["fleet", "restart", "--target",
+                             f"{fhost}:{fport}"])
+            done = _until(lambda: (supervisor()["rolling_restart"] is None
+                                   and any(r.get("fleet_event")
+                                           == "rolling_restart_done"
+                                           for r in read_ledger(
+                                               fleet_ledger)[0])),
+                          TIER_WAIT_S, "the rolling restart's end",
+                          step=0.2)
+            return {"exit_code": rc, "state": json.loads(text).get("state")
+                    if rc == 0 else None, "done": bool(done),
+                    "wall_s": time.monotonic() - t}
+
+        rolled = _wire_pass(fhost, fport,
+                            chunks[FLEET_ZMWS:2 * FLEET_ZMWS], trace=False,
+                            during=restart)
+        block2 = supervisor()
+        slots1 = {s["slot"]: s for s in block2["slots"]}
+        kinds = [r.get("fleet_event")
+                 for r in read_ledger(fleet_ledger)[0]]
+        fleet_rc = _stop_child(fleet)
+        pids = [s["pid"] for s in slots1.values()]
+        out["fleet"] = {
+            "up_s": fleet_up_s,
+            "respawn": {"reason": death.get("reason"),
+                        "death_to_readded_s": round(
+                            readd["t_event"] - death["t_event"], 3)},
+            "card_contexts": card2,
+            "first_stream": {"replies": len(first8["replies"]),
+                             "errors": sum(m.get("type") != "result"
+                                           for m in first8["replies"]
+                                           .values()),
+                             "wall_s": first8["wall_s"]},
+            "rolling": {**rolled["during"],
+                        "replies": len(rolled["replies"]),
+                        "errors": sum(m.get("type") != "result"
+                                      for m in rolled["replies"].values()),
+                        "duplicates": rolled["duplicates"]},
+            "incarnations": {s: [slots0[s]["incarnation"],
+                                 slots1[s]["incarnation"]] for s in slots0},
+            "ledger_events": sorted(set(k for k in kinds if k)),
+            "exit_code": fleet_rc,
+            "children_left": [p for p in pids if p and _alive(p)]}
+        f = out["fleet"]
+        check(card2["holds"].get("fleet") is False
+              and any(v for k, v in card2["holds"].items()
+                      if k != "fleet"),
+              f"fleet CUDA contexts: {card2['holds']}")
+        check("exit 86" in (death.get("reason") or "")
+              and "respawn" in f["ledger_events"],
+              f"fleet respawn: {death}")
+        check(f["first_stream"]["replies"] == FLEET_ZMWS
+              and not f["first_stream"]["errors"]
+              and not first8["duplicates"],
+              f"fleet stream: {f['first_stream']}")
+        check(f["rolling"]["replies"] == FLEET_ZMWS
+              and not f["rolling"]["errors"]
+              and not f["rolling"]["duplicates"]
+              and f["rolling"]["exit_code"] == 0 and f["rolling"]["done"]
+              and all(b == a + 1 for a, b in f["incarnations"].values())
+              and {"rolling_restart_begin", "rolling_restart_done"}
+              <= set(f["ledger_events"]),
+              f"fleet rolling restart: {f['rolling']} "
+              f"{f['incarnations']}")
+        check(fleet_rc == 0 and not f["children_left"],
+              f"fleet SIGTERM: exit {fleet_rc}, left {f['children_left']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30.0)
+    out["failed_checks"] = fail
+    emit(out)
+    if fail:
+        raise AssertionError(f"router: {fail}")
+    return out
+
+
+def _fleet_records(records, replicas) -> dict | None:
+    """A router ledger's router_snapshot and, per replica, a
+    replica_snapshot carrying that replica's own `platform` "gpu"
+    record; None until all are there."""
+    snaps = [r for r in records if r.get("kind") == "router_snapshot"]
+    reps = {}
+    for r in records:
+        if r.get("kind") == "replica_snapshot" \
+                and r.get("platform") == "gpu":
+            reps[r["replica"]] = {k: r.get(k) for k in (
+                "platform", "completed", "torch_version")}
+    if not snaps or set(replicas) - set(reps):
+        return None
+    return {"router_snapshots": len(snaps),
+            "router_platform": snaps[-1].get("platform"),
+            "replica_snapshots": reps}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2271,7 +3003,9 @@ def main() -> int:
     timed("ledger", phase_ledger, chunks, truths, cli_out)
     fleet_out = timed("fleet", phase_fleet, cli_out)
     timed("tune", phase_tune, cli_out)
-    timed("serve", phase_serve, cli_out, fleet_out)
+    serve_out = timed("serve", phase_serve, cli_out, fleet_out)
+    timed("router", phase_router, cli_out, serve_out,
+          {f"{CLI_MOVIE}/{hole}": t for hole, t in enumerate(truths)})
     emit({"phase_seconds": seconds})
 
     # K1's launch on the main path: alpha and beta together at the

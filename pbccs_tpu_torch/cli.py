@@ -24,10 +24,14 @@ per run, obs/ledger.py) and tuned knobs (--tuneProfile, runtime/
 tuning.py).  Every run ends with the `run metrics:` table of its registry
 window.  Subcommands: `ccs serve` (serve/server.py: the long-lived
 engine on the card behind the NDJSON/TCP protocol; `ccs serve --port 0`
-prints `CCS-SERVE-READY host port` and drains on SIGTERM), `ccs
-roofline` (obs/roofline.py), `ccs warmup` (sched/warmup.py) and `ccs
-tune` (tune/cli.py, with its serve leg); the router tier's (router,
-fleet, top) and `analyze` are left out, and argparse rejects them.  On
+prints `CCS-SERVE-READY host port` and drains on SIGTERM), `ccs router`
+(serve/router.py: the health-checked front door over `ccs serve`
+replicas; it holds no CUDA context), `ccs fleet` (serve/supervisor.py:
+a supervised router that spawns its `ccs serve` children, or an admin
+action against one), `ccs top` (obs/console.py), `ccs roofline`
+(obs/roofline.py), `ccs warmup` (sched/warmup.py) and `ccs tune`
+(tune/cli.py, with its serve leg); only `analyze` is left out, and
+argparse rejects it.  On
 the card, a band width the kernels cannot polish at (PBCCS_BAND_W, a
 tuned band_w; ops/fwdbwd_cuda.RUN_WIDTHS) exits 2 before anything is
 written.
@@ -36,7 +40,8 @@ written.
 card unless `device` names another (the tests pass device="cpu"; with
 --devices N that is N CPU workers; the serve tests call
 serve.server.run_serve(argv, device="cpu") in a child process, or run
-its engine and server in-process).  The fault injector, watchdog
+its engine and server in-process; `ccs fleet` with device="cpu" spawns
+children that do the same).  The fault injector, watchdog
 deadline and tune profile a run arms are restored when it returns, so
 in-process runs do not leak them into each other."""
 
@@ -415,6 +420,21 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
         from pbccs_tpu_torch.serve.server import run_serve
 
         return run_serve(argv[1:], device=device)
+    if argv and argv[0] == "router":
+        # `ccs router`: multi-replica front door (serve/router.py)
+        from pbccs_tpu_torch.serve.router import run_router
+
+        return run_router(argv[1:])
+    if argv and argv[0] == "fleet":
+        # `ccs fleet`: self-healing supervised fleet (serve/supervisor.py)
+        from pbccs_tpu_torch.serve.supervisor import run_fleet
+
+        return run_fleet(argv[1:], device=device)
+    if argv and argv[0] == "top":
+        # `ccs top`: live fleet console over a router/serve endpoint
+        from pbccs_tpu_torch.obs.console import run_top
+
+        return run_top(argv[1:])
     if argv and argv[0] == "roofline":
         # `ccs roofline`: per-bucket counted bound vs measured report
         from pbccs_tpu_torch.obs.roofline import run_roofline

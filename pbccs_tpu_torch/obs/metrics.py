@@ -1,10 +1,10 @@
 """Thread-safe metrics registry: counters, gauges, log-bucket histograms.
 
-Copy of pbccs_tpu.obs.metrics without the text-level federation helpers
-(parse_exposition, relabel_exposition, merge_expositions,
-histogram_quantile), which serve the router of a tier the port does not
-have yet.  Metric names are pbccs_tpu's, so a dashboard reads either
-package.  Design constraints, in order:
+Copy of pbccs_tpu.obs.metrics, with its text-level federation helpers
+(parse_exposition, relabel_exposition, merge_expositions) that the
+router's fleet-wide scrape and `ccs top` read through.  Metric names are
+pbccs_tpu's, so a dashboard reads either package.  Design constraints,
+in order:
 
   * cheap enough to leave on: one instance-lock add per update, metric
     handles are cached by callers (instruments are get-or-create keyed
@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import bisect
 import math
+import re
 import threading
 from typing import Iterable, Mapping
 
@@ -378,6 +379,121 @@ class MetricsRegistry:
 
 def _escape(v: str) -> str:
     return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+# ------------------------------------------------------------- federation
+#
+# Text-level helpers for the router's fleet-wide scrape surface: each
+# replica's exposition is relabeled under `replica="host:port"` and the
+# bodies merged into ONE valid exposition (HELP/TYPE once per metric,
+# sample lines grouped by name) so a single Prometheus target sees the
+# whole fleet.  Text-level on purpose -- the router must not need the
+# replica's registry objects, only its `metrics` verb reply.
+
+# label VALUES may contain any character (escaped `\\`, `\"`, `\n` --
+# and a literal `}` or `,` needs no escape at all in the Prometheus
+# text format), so the label block must be matched quote-aware: a
+# naive [^}]* stops at the first `}` inside a value and the relabel/
+# merge helpers would corrupt or drop that series
+_SAMPLE_RE = re.compile(
+    r'^([A-Za-z_:][A-Za-z0-9_:]*)'
+    r'(\{((?:[^{}"]|"(?:\\.|[^"\\])*")*)\})?\s+(.+)$')
+
+_LABEL_RE = re.compile(r'([A-Za-z_][A-Za-z0-9_]*)="((?:\\.|[^"\\])*)"')
+
+
+def _unescape(v: str) -> str:
+    # left-to-right, single pass: sequential str.replace would corrupt
+    # values like `\\n` (escaped backslash + literal n)
+    return re.sub(r"\\(.)",
+                  lambda m: "\n" if m.group(1) == "n" else m.group(1), v)
+
+
+def parse_exposition(text: str) -> dict[tuple[str, tuple[tuple[str, str],
+                                                         ...]], float]:
+    """Parse a Prometheus text exposition into {(name, label tuple):
+    value} (comment lines skipped, unparseable samples skipped).  The
+    inverse of render_prometheus for scalar samples -- what `ccs top`
+    and the federation tests read fleet figures back out of."""
+    out: dict[tuple[str, tuple[tuple[str, str], ...]], float] = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            continue
+        name, _, inner, value = m.groups()
+        try:
+            val = float(value.split()[0])
+        except (ValueError, IndexError):
+            continue
+        labels = tuple(sorted(
+            (k, _unescape(v)) for k, v in _LABEL_RE.findall(inner or "")))
+        out[(name, labels)] = val
+    return out
+
+
+def relabel_exposition(text: str, **labels: str) -> str:
+    """Inject `labels` into every sample line of a Prometheus text
+    exposition (comment lines pass through)."""
+    extra = ",".join(f'{k}="{_escape(str(v))}"'
+                     for k, v in sorted(labels.items()))
+    if not extra:
+        return text
+    out = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            out.append(line)
+            continue
+        m = _SAMPLE_RE.match(line)
+        if m is None:
+            out.append(line)      # not a sample line: pass through
+            continue
+        name, _, inner, value = m.groups()
+        inner = f"{inner},{extra}" if inner else extra
+        out.append(f"{name}{{{inner}}} {value}")
+    return "\n".join(out) + ("\n" if out else "")
+
+
+def merge_expositions(parts: "Iterable[str]") -> str:
+    """Merge several Prometheus text expositions into one: samples are
+    grouped under their base metric name (histogram _bucket/_sum/_count
+    lines group with their parent), HELP/TYPE emitted once per name
+    (first writer wins)."""
+    helps: dict[str, str] = {}
+    types: dict[str, str] = {}
+    samples: dict[str, list[str]] = {}
+
+    def base_name(sample_name: str) -> str:
+        for suffix in ("_bucket", "_sum", "_count"):
+            if sample_name.endswith(suffix):
+                return sample_name[: -len(suffix)]
+        return sample_name
+
+    for part in parts:
+        for line in part.splitlines():
+            if not line:
+                continue
+            if line.startswith("# HELP "):
+                name = line.split(None, 3)[2]
+                helps.setdefault(name, line)
+            elif line.startswith("# TYPE "):
+                name = line.split(None, 3)[2]
+                types.setdefault(name, line)
+            elif line.startswith("#"):
+                continue
+            else:
+                m = _SAMPLE_RE.match(line)
+                name = base_name(m.group(1)) if m else line.split(" ")[0]
+                samples.setdefault(name, []).append(line)
+    lines: list[str] = []
+    for name in sorted(samples):
+        if name in helps:
+            lines.append(helps[name])
+        if name in types:
+            lines.append(types[name])
+        lines.extend(samples[name])
+    return "\n".join(lines) + ("\n" if lines else "")
 
 
 def histogram_quantile(counts: "tuple[int, ...]",

@@ -773,11 +773,24 @@ def _block_from_ledger(path: str) -> dict | None:
                 "dispatches": rec.get("polish_dispatches")}}}
 
 
+def _block_from_target(target: str, timeout: float) -> dict:
+    from pbccs_tpu_torch.serve.client import CcsClient
+    host, _, port = target.rpartition(":")
+    with CcsClient(host or "127.0.0.1", int(port),
+                   timeout=timeout) as client:
+        status = client.status(timeout=timeout)
+    block = status.get("roofline")
+    if not block:
+        raise SystemExit(
+            f"ccs roofline: {target} reports no roofline block (no "
+            "polished buckets yet, or PBCCS_ROOFLINE=0 on the replica)")
+    return block
+
+
 def run_roofline(argv: list[str] | None = None) -> int:
     """`ccs roofline`: per-bucket bound/measured/efficiency report for a
-    batch run (--ledger) or the card cache itself (--cards, default
-    cards_path()).  --target, a live replica's status verb, needs the
-    serving tier, which the port does not have: it exits 2."""
+    live fleet (--target status verb), a batch run (--ledger), or the
+    card cache itself (--cards, default cards_path())."""
     import argparse
     p = argparse.ArgumentParser(
         prog="ccs roofline",
@@ -785,8 +798,8 @@ def run_roofline(argv: list[str] | None = None) -> int:
                     "CostCard bound, measured refine time, achieved "
                     "TFLOP/s and efficiency against the card's peak.")
     p.add_argument("--target", metavar="HOST:PORT", default=None,
-                   help="Live serve/router replica (needs the serving "
-                        "tier, not in this package: exits 2).")
+                   help="Live serve/router replica: read the status-verb "
+                        "roofline block.")
     p.add_argument("--ledger", metavar="PATH", default=None,
                    help="Perf-ledger NDJSON: summarize the last record "
                         "carrying roofline_* fields (batch runs).")
@@ -795,13 +808,15 @@ def run_roofline(argv: list[str] | None = None) -> int:
                         "PBCCS_ROOFLINE_CARDS, else "
                         "build/roofline_cards.json).")
     p.add_argument("--format", choices=("text", "json"), default="text")
+    p.add_argument("--timeout", type=float, default=5.0)
     args = p.parse_args(argv)
 
-    if args.target:
-        p.error("--target is not ported: it comes with the rest of the "
-                "serving tier (ccs router, fleet, top)")
     doc: dict = {"schema_version": ROOFLINE_SCHEMA_VERSION}
-    if args.ledger:
+    if args.target:
+        block = _block_from_target(args.target, args.timeout)
+        doc.update(source="status", target=args.target, block=block,
+                   rows=_rows_from_block(block))
+    elif args.ledger:
         block = _block_from_ledger(args.ledger)
         if block is None:
             raise SystemExit(f"ccs roofline: {args.ledger} has no "

@@ -1,7 +1,6 @@
 """Per-ZMW trace spans with wall vs device-wait attribution.
 
-Port of pbccs_tpu.obs.trace without the router's retroactive spans
-(`add_span`: the router is not ported).  A Tracer collects a span tree
+Port of pbccs_tpu.obs.trace.  A Tracer collects a span tree
 per thread (filter -> draft -> polish -> polish.setup / polish.refine /
 polish.qv -> emit) and exports Chrome-trace/Perfetto JSON ("traceEvents"
 with complete "X" events: load chrome://tracing or ui.perfetto.dev).
@@ -19,9 +18,12 @@ Cross-process trace context: a span may carry an inbound `ctx` dict --
 ``{"trace_id": ..., "span_id": ...}``, the wire shape of
 serve/protocol.py's `trace` submit field -- naming the REMOTE parent it
 continues.  Children inherit the trace_id through the per-thread stack,
-and every context-bearing span exports a process-unique `span_id`, so a
-per-request tree can be reassembled across processes from the three
-args trace_id / span_id / remote_parent.
+every context-bearing span exports a process-unique `span_id`, and
+tools/trace_merge.py reassembles the per-request tree across router and
+replica processes from exactly these three args (trace_id / span_id /
+remote_parent).  The router records its per-request span retroactively
+(`Tracer.add_span`) under a pinned span id that the replica hop already
+named as its remote parent.
 
 """
 
@@ -38,7 +40,7 @@ from typing import Any, Iterator
 
 def new_trace_id() -> str:
     """A fresh 16-hex-char request trace id (minted at the first tier
-    that sees the request: the client)."""
+    that sees the request: client, or the router edge)."""
     return uuid.uuid4().hex[:16]
 
 
@@ -46,12 +48,14 @@ class Span:
     """One finished-or-open span; nesting is per-thread."""
 
     __slots__ = ("name", "args", "tid", "t0", "t1", "device_wait_s",
-                 "parent", "index", "trace_id", "remote_parent", "open")
+                 "parent", "index", "trace_id", "remote_parent", "sid",
+                 "open")
 
     def __init__(self, name: str, args: dict[str, Any], tid: int,
                  t0: float, parent: "Span | None", index: int,
                  trace_id: str | None = None,
-                 remote_parent: str | None = None):
+                 remote_parent: str | None = None,
+                 sid: str | None = None):
         self.name = name
         self.args = args
         self.tid = tid
@@ -62,6 +66,7 @@ class Span:
         self.index = index
         self.trace_id = trace_id
         self.remote_parent = remote_parent
+        self.sid = sid          # explicit span id (router retro-spans)
         self.open = True
 
     @property
@@ -132,9 +137,34 @@ class Tracer:
             sp.open = False
             stack.pop()
 
+    def add_span(self, name: str, duration_s: float, *,
+                 ctx: dict | None = None, span_id: str | None = None,
+                 **args) -> Span | None:
+        """Record a RETROACTIVE closed span ending now (the router's
+        per-request span: its lifetime is only known at completion).
+        `span_id` pins the exported id so the forwarding tier could name
+        this span as the remote parent BEFORE it was recorded."""
+        t1 = time.perf_counter()
+        trace_id = remote_parent = None
+        if ctx:
+            trace_id = ctx.get("trace_id")
+            remote_parent = ctx.get("span_id")
+        with self._lock:
+            if len(self._spans) >= self.max_spans:
+                self.dropped_spans += 1
+                return None
+            sp = Span(name, args, threading.get_ident() & 0xFFFFFFFF,
+                      t1 - max(duration_s, 0.0), None, len(self._spans),
+                      trace_id=trace_id, remote_parent=remote_parent,
+                      sid=span_id)
+            sp.t1 = t1
+            sp.open = False
+            self._spans.append(sp)
+        return sp
+
     def span_id_of(self, sp: Span) -> str:
-        """The span's process-unique exported id."""
-        return f"{self.tag}-{sp.index}"
+        """The span's fleet-unique exported id."""
+        return sp.sid if sp.sid is not None else f"{self.tag}-{sp.index}"
 
     def context_of(self, sp: Span) -> dict | None:
         """The wire trace context continuing this span on the next hop
@@ -172,8 +202,9 @@ class Tracer:
         still OPEN at capture time are tagged args.open=true with their
         duration measured up to the capture instant -- a mid-flight
         capture renders them honestly instead of as zero-duration lies.
-        The `meta` block carries the dropped/open counts, the process
-        tag and the wall-clock origin."""
+        The `meta` block (dropped/open counts, process tag, wall-clock
+        origin) is what tools/trace_merge.py keys the multi-process
+        merge on."""
         now = time.perf_counter()
         open_spans = 0
         events = []
@@ -185,6 +216,8 @@ class Tracer:
             if sp.trace_id is not None:
                 args["trace_id"] = sp.trace_id
                 args["span_id"] = self.span_id_of(sp)
+            elif sp.sid is not None:
+                args["span_id"] = sp.sid
             if sp.remote_parent is not None:
                 args["remote_parent"] = sp.remote_parent
             t1 = sp.t1

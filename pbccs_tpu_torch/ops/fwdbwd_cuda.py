@@ -470,17 +470,22 @@ def forward_backward_batch(reads, rlens, tpls, trans, tlens, width: int,
 
 def forward_loglik_batch(alpha: BandedMatrix, rlens, tlens) -> torch.Tensor:
     """LL[r] = log alpha(I, J) + sum of column log-scales; column J is
-    one-hot, so the final value is a masked band sum."""
+    one-hot, so the final value is a masked band sum.  The log-scales
+    sum in float64, rounded once (mutation_score.scale_prefix says why:
+    a float32 sum over the padded columns follows the batch's Jmax)."""
     J = tlens.to(torch.int32)[:, None]
     jcols = torch.arange(alpha.vals.shape[1], device=J.device)[None, :]
     final = torch.where((jcols == J)[:, :, None], alpha.vals, 0.0).sum((1, 2))
-    ls = torch.where(jcols <= J, alpha.log_scales, 0.0).sum(1)
-    return torch.log(torch.clamp(final, min=_TINY)) + ls
+    ls = torch.where(jcols <= J, alpha.log_scales.double(), 0.0).sum(1)
+    return (torch.log(torch.clamp(final, min=_TINY)).double()
+            + ls).to(alpha.log_scales.dtype)
 
 
 def backward_loglik_batch(beta: BandedMatrix, tlens) -> torch.Tensor:
-    """LL[r] = log beta(0, 0) + sum of column log-scales."""
+    """LL[r] = log beta(0, 0) + sum of column log-scales (in float64, as
+    forward_loglik_batch)."""
     J = tlens.to(torch.int32)[:, None]
     jcols = torch.arange(beta.vals.shape[1], device=J.device)[None, :]
-    ls = torch.where(jcols <= J, beta.log_scales, 0.0).sum(1)
-    return torch.log(torch.clamp(beta.vals[:, 0, 0], min=_TINY)) + ls
+    ls = torch.where(jcols <= J, beta.log_scales.double(), 0.0).sum(1)
+    return (torch.log(torch.clamp(beta.vals[:, 0, 0], min=_TINY)).double()
+            + ls).to(beta.log_scales.dtype)

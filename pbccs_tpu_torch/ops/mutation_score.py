@@ -29,18 +29,26 @@ from pbccs_tpu_torch.ops.fwdbwd_cuda import _third
 
 
 def scale_prefix(log_scales: torch.Tensor) -> torch.Tensor:
-    """alpha_prefix[..., k] = sum(log_scales[..., :k]); shape (..., n+1)."""
-    z = torch.zeros(log_scales.shape[:-1] + (1,), dtype=log_scales.dtype,
-                    device=log_scales.device)
-    return torch.cat([z, torch.cumsum(log_scales, dim=-1)], dim=-1)
+    """alpha_prefix[..., k] = sum(log_scales[..., :k]); shape (..., n+1).
+
+    Accumulated in float64 and rounded once: a float32 scan associates
+    by the tensor's length, so a read's sums would follow the batch's
+    padded column count (Jmax) and a ZMW's consensus the other ZMWs of
+    its batch (a mate whose template outgrows the bucket re-buckets all
+    of them)."""
+    ls = log_scales.double()
+    z = torch.zeros(ls.shape[:-1] + (1,), dtype=ls.dtype, device=ls.device)
+    return torch.cat([z, torch.cumsum(ls, dim=-1)],
+                     dim=-1).to(log_scales.dtype)
 
 
 def scale_suffix(log_scales: torch.Tensor) -> torch.Tensor:
-    """beta_suffix[..., k] = sum(log_scales[..., k:]); shape (..., n+1)."""
-    z = torch.zeros(log_scales.shape[:-1] + (1,), dtype=log_scales.dtype,
-                    device=log_scales.device)
-    suf = torch.flip(torch.cumsum(torch.flip(log_scales, [-1]), dim=-1), [-1])
-    return torch.cat([suf, z], dim=-1)
+    """beta_suffix[..., k] = sum(log_scales[..., k:]); shape (..., n+1).
+    In float64, rounded once, as scale_prefix."""
+    ls = log_scales.double()
+    z = torch.zeros(ls.shape[:-1] + (1,), dtype=ls.dtype, device=ls.device)
+    suf = torch.flip(torch.cumsum(torch.flip(ls, [-1]), dim=-1), [-1])
+    return torch.cat([suf, z], dim=-1).to(log_scales.dtype)
 
 
 def _circ_rows_batch(o: torch.Tensor, W: int) -> torch.Tensor:

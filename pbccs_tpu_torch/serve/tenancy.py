@@ -367,6 +367,11 @@ def server_ssl_context(certfile: str, keyfile: str) -> ssl.SSLContext:
     raises on unreadable/mismatched PEMs at startup, never mid-accept."""
     ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
     ctx.minimum_version = ssl.TLSVersion.TLSv1_2
+    # no TLS 1.3 session tickets: they arrive after the handshake, while
+    # a client's reader thread and its writer share one SSL object, and
+    # that race stalls the session's first frame now and then.  The
+    # tier's connections are long-lived and never resumed.
+    ctx.num_tickets = 0
     ctx.load_cert_chain(certfile, keyfile)
     return ctx
 

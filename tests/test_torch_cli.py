@@ -302,14 +302,19 @@ def test_ported_flags_are_accepted_and_act(cases, tmp_path, monkeypatch,
         assert json.load(open(tmp_path / "prof" / trace))["traceEvents"]
 
 
-#: what of each subcommand is not ported: the router tier's and analyze
-#: whole; of serve and warmup their XLA cache flag.  tune is ported
-#: whole: its case is a serve-leg grid value that does not parse, a
-#: usage error as every rejection here
+#: what of each subcommand is not ported: analyze whole; of serve,
+#: warmup and fleet their XLA cache flag.  tune, router and top are
+#: ported whole: their cases are usage errors that pbccs_tpu's parsers
+#: reject too (a tune serve-leg grid value that does not parse, a router
+#: with no --replica, a top frame format that does not exist), as every
+#: rejection here is
 UNPORTED_SUB = {"serve": ["--compileCache", "d"],
                 "warmup": ["--compileCache", "d", "--bucket", "2x3x40"],
                 "tune": ["--serveLeg", "--candidates",
-                         "serve_max_batch=eight"]}
+                         "serve_max_batch=eight"],
+                "fleet": ["--compileCache", "d"],
+                "router": ["--port", "0"],
+                "top": ["127.0.0.1:1", "--once", "--format", "xml"]}
 
 
 @pytest.mark.parametrize("sub", ["serve", "router", "fleet", "warmup",
@@ -320,15 +325,46 @@ def test_subcommands_are_not_ported(sub):
     except SystemExit as e:
         rc = e.code
     assert rc == 2
+    if sub in ("router", "top"):
+        # a usage error of pbccs_tpu's own parser too
+        from pbccs_tpu.obs.console import build_top_parser
+        from pbccs_tpu.serve.router import build_router_parser
+
+        parser = build_router_parser() if sub == "router" \
+            else build_top_parser()
+        with pytest.raises(SystemExit) as e:
+            parser.parse_args(UNPORTED_SUB[sub])
+        assert e.value.code == 2
 
 
 def test_roofline_target_exits_2(capsys):
-    """`ccs roofline` is ported; its --target reads a serve replica's
-    status verb, and the serving tier is not."""
-    with pytest.raises(SystemExit) as e:
-        run(["roofline", "--target", "127.0.0.1:1"], device="cpu")
-    assert e.value.code == 2
-    assert "serving tier" in capsys.readouterr().err
+    """`ccs roofline --target` is ported (tests/test_torch_console.py
+    reads a live replica's roofline block through it); a --target with
+    no address is a usage error of both packages' parsers."""
+    from pbccs_tpu.obs.roofline import run_roofline as jrun_roofline
+
+    for entry in (lambda a: run(["roofline", *a], device="cpu"),
+                  jrun_roofline):
+        with pytest.raises(SystemExit) as e:
+            entry(["--target"])
+        assert e.value.code == 2
+        assert "--target" in capsys.readouterr().err
+
+
+def test_router_tier_subcommands_run(capsys):
+    """`ccs top` against an address nothing answers on exits 1 with its
+    unreachable frame, `ccs router` with a replica spec that is no
+    HOST:PORT exits 2 before it binds, and `ccs fleet list` with no
+    --target exits 2 -- pbccs_tpu's answers, through the port's CLI."""
+    assert run(["top", "127.0.0.1:1", "--once", "--format", "json",
+                "--timeout", "1.0"], device="cpu") == 1
+    assert json.loads(capsys.readouterr().out)["error"] == \
+        "target unreachable"
+    assert run(["router", "--replica", "nohost", "--port", "0"],
+               device="cpu") == 2
+    assert "want HOST:PORT" in capsys.readouterr().err
+    assert run(["fleet", "list"], device="cpu") == 2
+    assert "--target" in capsys.readouterr().err
 
 
 def test_module_entry_point():

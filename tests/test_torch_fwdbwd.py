@@ -283,3 +283,41 @@ def test_ftz_flushes_exactly_the_subnormals():
     np.testing.assert_array_equal(np.isnan(got), nan)
     np.testing.assert_array_equal(got[~nan].view(np.int32),
                                   want[~nan].view(np.int32))
+
+
+@pytest.mark.parametrize("pad", [1, 64, 192])
+def test_log_scale_sums_ignore_column_padding(pad):
+    """The column log-scale sums (prefix, suffix and both
+    log-likelihoods) accumulate in float64 and round once: the same
+    read's values are bitwise the same whatever padded column count its
+    batch gives it (a float32 scan associates by the tensor's length),
+    and each equals the float64 sum rounded to float32."""
+    from pbccs_tpu_torch.ops.mutation_score import scale_prefix, scale_suffix
+
+    rng = np.random.default_rng(pad)
+    R, nc, W = 6, 300, 32
+    tl = torch.as_tensor(rng.integers(200, nc - 1, R))
+    ls = torch.as_tensor(rng.uniform(-3.0, 0.5, (R, nc)).astype(np.float32))
+    ls = torch.where(torch.arange(nc)[None, :] <= tl[:, None], ls, 0.0)
+    vals = torch.as_tensor(rng.uniform(0.0, 1.0, (R, nc, W))
+                           .astype(np.float32))
+    offs = torch.zeros(R, nc, dtype=torch.int32)
+
+    def padded(x, k):
+        return torch.cat([x, torch.zeros(x.shape[:1] + (k,) + x.shape[2:],
+                                         dtype=x.dtype)], 1)
+
+    small = tfb.BandedMatrix(vals, offs, ls)
+    big = tfb.BandedMatrix(padded(vals, pad), padded(offs, pad),
+                           padded(ls, pad))
+    assert torch.equal(scale_prefix(big.log_scales)[:, : nc + 1],
+                       scale_prefix(ls))
+    assert torch.equal(scale_suffix(big.log_scales)[:, : nc + 1],
+                       scale_suffix(ls))
+    rl = torch.full((R,), 10)
+    for fn, args in ((tfc.forward_loglik_batch, (rl, tl)),
+                     (lambda m, t: tfc.backward_loglik_batch(m, t), (tl,))):
+        a, b = fn(small, *args), fn(big, *args)
+        assert torch.equal(a, b)
+    want = np.cumsum(ls.numpy().astype(np.float64), 1).astype(np.float32)
+    np.testing.assert_array_equal(scale_prefix(ls)[:, 1:].numpy(), want)

@@ -645,6 +645,96 @@ def test_engine_on_cuda_matches_pinned_batch_polish(cuda):
         assert r.result.predicted_accuracy == result.predicted_accuracy
 
 
+def test_router_over_two_engines_matches_pinned_batch_polish(cuda):
+    """`ccs router` in front of two in-process CcsServers on cuda:0
+    (spill depth 1, so both replicas serve): every reply through the
+    router byte-equal to polish_prepared_batch on the card at its
+    flush's pinned (Imax, Jmax, R, Z), each flush's members read from
+    the engine's polish function."""
+    from pbccs_tpu_torch.pipeline import (Chunk, ConsensusSettings, Subread,
+                                          polish_prepared_batch,
+                                          prepare_chunk)
+    from pbccs_tpu_torch.serve import engine as se
+    from pbccs_tpu_torch.serve import protocol
+    from pbccs_tpu_torch.serve.client import CcsClient
+    from pbccs_tpu_torch.serve.router import (CcsRouter, RouterConfig,
+                                              RouterServer)
+    from pbccs_tpu_torch.serve.server import CcsServer
+
+    rng = np.random.default_rng(41)
+    chunks = []
+    for z in range(6):
+        _, reads, _, snr = simulate_zmw(rng, 300, 5)
+        chunks.append(Chunk(f"r/{z}", [Subread(f"r/{z}/{i}", r)
+                                       for i, r in enumerate(reads)], snr))
+    flushes = []
+
+    def polish(preps, settings, **kw):
+        flushes.append([p.chunk.id for p in preps])
+        return se._polish_shape_pinned(preps, settings, device=cuda, **kw)
+
+    cfg = se.ServeConfig(max_batch=3, max_wait_ms=2_000.0, prep_workers=1)
+    engines = [se.CcsEngine(config=cfg, polish_fn=polish).start()
+               for _ in range(2)]
+    servers = [CcsServer(e, port=0).start() for e in engines]
+    router = CcsRouter([f"127.0.0.1:{s.port}" for s in servers],
+                       RouterConfig(spill_depth=1,
+                                    health_timeout_s=60.0)).start()
+    front = RouterServer(router, port=0).start()
+    fills, dense = fc.arrow_fill.launches, ds.dense_score.launches
+    try:
+        with CcsClient(front.host, front.port, timeout=600.0) as cli:
+            handles = [cli.submit_chunk(c) for c in chunks]
+            replies = {c.id: h.reply(600.0) for c, h in zip(chunks, handles)}
+        routed = [r["routed"] for r in router.status()["replicas"]]
+    finally:
+        front.shutdown()
+        router.close(drain=False)
+        for s, e in zip(servers, engines):
+            s.shutdown()
+            e.close(drain=False)
+    assert all(n > 0 for n in routed) and sum(routed) == len(chunks)
+    assert fc.arrow_fill.launches > fills and ds.dense_score.launches > dense
+    settings = ConsensusSettings()
+    prep = {c.id: prepare_chunk(c, settings)[1] for c in chunks}
+    assert sorted(i for f in flushes for i in f) == sorted(prep)
+    keys = ("status", "zmw", "sequence", "qual", "num_passes",
+            "predicted_accuracy", "avg_zscore")
+    for ids in flushes:
+        preps = [prep[i] for i in ids]
+        for i, (failure, result) in zip(ids, polish_prepared_batch(
+                preps, settings, buckets=se.flush_buckets(preps))):
+            want = protocol.result_to_wire(None, i, failure, result, 0.0)
+            assert [replies[i].get(k) for k in keys] == \
+                [want.get(k) for k in keys], i
+
+
+def test_polish_is_invariant_to_the_batchs_column_padding(cuda):
+    """One ZMW polished on the card at its own Jmax and padded by 64 and
+    by 192 columns (as a batch mate with a longer template, or one that
+    outgrows the bucket, pads it): the same record, bit for bit -- the
+    column log-scale sums are float64."""
+    from pbccs_tpu_torch.pipeline import (Chunk, ConsensusSettings, Subread,
+                                          polish_prepared_batch,
+                                          prepare_chunk)
+    from pbccs_tpu_torch.serve.engine import flush_buckets
+
+    rng = np.random.default_rng(43)
+    _, reads, _, snr = simulate_zmw(rng, 1500, 4)
+    chunk = Chunk("pad/0", [Subread(f"pad/0/{i}", r)
+                            for i, r in enumerate(reads)], snr)
+    settings = ConsensusSettings()
+    prep = prepare_chunk(chunk, settings)[1]
+    I, J, R, Z = flush_buckets([prep])
+    got = []
+    for extra in (0, 64, 192):
+        (failure, result), = polish_prepared_batch(
+            [prep], settings, device=cuda, buckets=(I, J + extra, R, Z))
+        got.append((failure, result.sequence, result.qvs.tobytes(),
+                    result.predicted_accuracy))
+    assert got[0] == got[1] == got[2]
+
+
 def test_batch_polisher_refuses_an_unbuilt_width_at_construction(cuda):
     """band_width=80 on the card: ValueError when the BatchPolisher is
     built, before any launch -- never mid-refine."""

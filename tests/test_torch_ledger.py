@@ -380,3 +380,76 @@ def test_perf_gate_passes_port_ledger_against_jax_baseline(ledgers, capsys):
               for line in capsys.readouterr().out.splitlines()
               if line.startswith("{")}
     assert failed and failed <= set(BY_DESIGN)
+
+
+# ------------------------------------------------ the router's fleet ledger
+
+
+def test_router_merges_fleet_records(tmp_path):
+    """`ccs router --perfLedger`'s fleet tick: its own router_snapshot,
+    and one replica_snapshot per reachable replica -- the replica's
+    newest ledger record (one replica writes a ledger) or its live
+    status figures (the other does not).  Every field is declared; the
+    ledger-running replica's record carries its source's platform."""
+    import time as time_mod
+
+    from pbccs_tpu_torch.pipeline import Failure, PreparedZmw
+    from pbccs_tpu_torch.serve.engine import CcsEngine, ServeConfig
+    from pbccs_tpu_torch.serve.router import CcsRouter, RouterConfig
+    from pbccs_tpu_torch.serve.server import CcsServer
+
+    def engine(ledger_path=None):
+        return CcsEngine(
+            config=ServeConfig(max_batch=1, max_wait_ms=20.0,
+                               perf_ledger_path=ledger_path,
+                               perf_ledger_interval_s=0.1),
+            prep_fn=lambda c, s: (None, PreparedZmw(
+                c, np.zeros(8, np.int8), [], 1, 0, 0.0)),
+            polish_fn=lambda p, s: [(Failure.SUCCESS, None) for _ in p],
+            device="cpu").start()
+
+    eng1 = engine(str(tmp_path / "serve_ledger.ndjson"))
+    eng2 = engine()
+    srv1 = CcsServer(eng1, port=0).start()
+    srv2 = CcsServer(eng2, port=0).start()
+    fleet_path = str(tmp_path / "fleet_ledger.ndjson")
+    names = {f"127.0.0.1:{srv1.port}", f"127.0.0.1:{srv2.port}"}
+    router = CcsRouter(sorted(names),
+                       RouterConfig(health_interval_s=0.2,
+                                    perf_ledger_path=fleet_path,
+                                    perf_ledger_interval_s=0.2)).start()
+
+    def replicas_seen():
+        return {r.get("replica") for r in read_ledger(fleet_path)[0]
+                if r["kind"] == "replica_snapshot"}
+
+    def sourced():
+        # replica_snapshots that carry srv1's own ledger record
+        return [r for r in read_ledger(fleet_path)[0]
+                if r["kind"] == "replica_snapshot"
+                and r["replica"] == f"127.0.0.1:{srv1.port}"
+                and "platform" in r]
+
+    try:
+        deadline = time_mod.monotonic() + 10.0
+        while time_mod.monotonic() < deadline:
+            kinds = {r["kind"] for r in read_ledger(fleet_path)[0]}
+            if "router_snapshot" in kinds and names <= replicas_seen() \
+                    and sourced():
+                break
+            time_mod.sleep(0.05)
+    finally:
+        router.close(drain=False)
+        for srv, eng in ((srv1, eng1), (srv2, eng2)):
+            srv.shutdown()
+            eng.close(drain=False)
+    records, skipped = read_ledger(fleet_path)
+    assert skipped == 0
+    assert {"router_snapshot", "replica_snapshot"} <= \
+        {r["kind"] for r in records}
+    assert names <= replicas_seen()
+    for rec in records:
+        assert set(rec) <= set(LEDGER_FIELDS), set(rec) - set(LEDGER_FIELDS)
+    led = sourced()
+    assert led and all(r["platform"] == "cpu" and "torch_version" in r
+                       for r in led)

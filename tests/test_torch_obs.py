@@ -3,14 +3,21 @@ metrics registry (counters, gauges, log-bucket histograms, measurement
 scopes, Prometheus exposition, the end-of-run summary table), trace
 spans with device-wait attribution and their Chrome export, the
 device-fetch timer, the torch.profiler capture, and two small modules
-of the same slice (runtime/readid.py, contract.py).
+of the same slice (runtime/readid.py, contract.py).  Then the router
+tier's pieces: the federation helpers (parse, relabel and merge of
+Prometheus expositions), the tracer's retroactive spans (`add_span`) and
+the port's trace merge (the cases of tests/test_obs.py and
+tests/test_trace_merge.py).
 
 Parity: the same operations on a registry of each package render the
 same Prometheus text and summary table; the CLI's --trace-out spans on
 the same FASTA have the same names and nesting as pbccs_tpu's (its host
 refinement loop's per-round `polish.round` spans aside: the port
 refines in its device loop, which, like pbccs_tpu's, has none); the
-tool contract is the same JSON but for the command it names."""
+tool contract is the same JSON but for the command it names; the
+federation helpers and add_span export the same text and args as
+pbccs_tpu's, and the trace merge the same document as
+tools/trace_merge.py on the same bundle."""
 
 import json
 import os
@@ -37,6 +44,7 @@ from pbccs_tpu_torch.obs.metrics import MetricsRegistry, log_buckets
 from pbccs_tpu_torch.runtime import timing
 from pbccs_tpu_torch.runtime.readid import ReadId
 from pbccs_tpu_torch.simulate import simulate_zmw
+from pbccs_tpu_torch.tools import trace_merge
 from pbccs_tpu_torch.utils.intervals import Interval
 
 torch.set_num_threads(1)
@@ -434,3 +442,353 @@ def test_emit_tool_contract_file(tmp_path):
     out = tmp_path / "tc.json"
     assert contract.main(["emit-tool-contract", "-o", str(out)]) == 0
     assert json.loads(out.read_text()) == contract.tool_contract()
+
+
+class TestAddSpan:
+    def test_add_span_pins_explicit_span_id(self):
+        tracer = obs_trace.Tracer()
+        sp = tracer.add_span("router.request", 0.25,
+                             ctx={"trace_id": "abc", "span_id": "cl-0"},
+                             span_id="rt-q9", replica="r1")
+        assert sp is not None and not sp.open
+        ev = tracer.to_chrome()["traceEvents"][0]
+        assert ev["args"]["span_id"] == "rt-q9"
+        assert ev["args"]["remote_parent"] == "cl-0"
+        assert ev["dur"] == pytest.approx(250_000, rel=0.05)
+
+    def test_add_span_exports_as_pbccs_tpu(self):
+        """Retro spans with and without a context, a pinned id without
+        a trace id, and one past the cap: the same args, the same
+        dropped count as pbccs_tpu's tracer."""
+        from pbccs_tpu.obs import trace as jtrace
+
+        exported = []
+        for mod in (obs_trace, jtrace):
+            tracer = mod.Tracer(tag="r", max_spans=3)
+            tracer.add_span("router.request", 0.01,
+                            ctx={"trace_id": "t1", "span_id": None},
+                            span_id="rt-q1", replica="a:1", attempts=1)
+            tracer.add_span("router.request", 0.02, span_id="rt-q2")
+            with tracer.span("serve.prep",
+                             ctx={"trace_id": "t1", "span_id": "rt-q1"}):
+                pass
+            assert tracer.add_span("late", 0.0) is None
+            assert tracer.span_id_of(tracer.finished_spans()[0]) == "rt-q1"
+            doc = tracer.to_chrome()
+            exported.append(([(e["name"], e["args"])
+                              for e in doc["traceEvents"]],
+                             doc["meta"]["dropped_spans"]))
+        assert exported[0] == exported[1]
+
+
+class TestFederationHelpers:
+    def test_relabel_injects_into_all_sample_forms(self):
+        from pbccs_tpu_torch.obs.metrics import relabel_exposition
+
+        body = ('# TYPE a_total counter\n'
+                'a_total 3\n'
+                'a_total{x="1"} 4\n'
+                'h_bucket{le="+Inf"} 7\n')
+        out = relabel_exposition(body, replica="r:1")
+        assert 'a_total{replica="r:1"} 3' in out
+        assert 'a_total{x="1",replica="r:1"} 4' in out
+        assert 'h_bucket{le="+Inf",replica="r:1"} 7' in out
+        assert '# TYPE a_total counter' in out
+
+    def test_merge_groups_by_name_with_one_type_line(self):
+        from pbccs_tpu_torch.obs.metrics import merge_expositions
+
+        merged = merge_expositions([
+            "# TYPE a_total counter\na_total 1\n",
+            '# TYPE a_total counter\na_total{replica="x"} 2\n',
+        ])
+        assert merged.count("# TYPE a_total counter") == 1
+        assert "a_total 1" in merged
+        assert 'a_total{replica="x"} 2' in merged
+
+    def test_histogram_quantile(self):
+        from pbccs_tpu_torch.obs.metrics import histogram_quantile
+
+        bounds = (0.1, 0.2, 0.4)
+        assert histogram_quantile((10, 0, 0, 0), bounds, 0.99) == 0.1
+        assert histogram_quantile((50, 49, 1, 0), bounds, 0.99) == 0.2
+        assert histogram_quantile((0, 0, 0, 5), bounds, 0.5) == 0.4
+        import math
+        assert math.isnan(histogram_quantile((0, 0, 0, 0), bounds, 0.5))
+
+    def test_histogram_quantile_edge_shapes(self):
+        """Empty/all-zero counts, a single bucket, and degenerate
+        no-finite-bounds layouts answer (NaN or a bound), never raise."""
+        import math
+
+        from pbccs_tpu_torch.obs.metrics import histogram_quantile
+
+        # empty layouts: no counts at all / no finite bounds
+        assert math.isnan(histogram_quantile((), (), 0.5))
+        assert math.isnan(histogram_quantile((5,), (), 0.9))
+        # all-zero counts at every width
+        assert math.isnan(histogram_quantile((0,), (), 0.5))
+        assert math.isnan(histogram_quantile((0, 0), (1.0,), 0.5))
+        # a single bucket: everything lands on its one bound
+        assert histogram_quantile((3, 0), (1.0,), 0.01) == 1.0
+        assert histogram_quantile((3, 0), (1.0,), 0.99) == 1.0
+        # overflow-only observations report the last finite bound
+        assert histogram_quantile((0, 7), (1.0,), 0.5) == 1.0
+        # q=0 and q=1 extremes stay in range
+        assert histogram_quantile((1, 1, 0), (0.1, 0.2), 0.0) == 0.1
+        assert histogram_quantile((1, 1, 0), (0.1, 0.2), 1.0) == 0.2
+
+    def test_hostile_label_values_roundtrip_federation(self):
+        """Label values containing backslash, quote, newline, and a
+        literal `}` must survive render -> relabel -> merge -> parse
+        without corrupting the exposition (the values the fleet mints
+        from network identity are not this hostile; a chaos test's
+        are)."""
+        from pbccs_tpu_torch.obs.metrics import (MetricsRegistry,
+                                           merge_expositions,
+                                           parse_exposition,
+                                           relabel_exposition)
+
+        hostile = 'a\\b"c}d\ne'
+        reg = MetricsRegistry()
+        reg.counter("ccs_hostile_total", "t", path=hostile).inc(3)
+        body = reg.render_prometheus()
+        relabeled = relabel_exposition(body, replica="r:1")
+        merged = merge_expositions([relabeled])
+        parsed = parse_exposition(merged)
+        key = ("ccs_hostile_total",
+               (("path", hostile), ("replica", "r:1")))
+        assert parsed[key] == 3.0
+        # the relabel actually landed (a corrupted line would have been
+        # passed through unlabeled)
+        assert all("replica" in dict(labels)
+                   for (_n, labels) in parsed)
+
+    def test_relabel_escapes_injected_label_value(self):
+        from pbccs_tpu_torch.obs.metrics import (parse_exposition,
+                                           relabel_exposition)
+
+        out = relabel_exposition("a_total 1\n", replica='x"y\\z')
+        assert parse_exposition(out)[
+            ("a_total", (("replica", 'x"y\\z'),))] == 1.0
+
+    def test_merge_empty_and_comment_only_parts(self):
+        from pbccs_tpu_torch.obs.metrics import merge_expositions
+
+        assert merge_expositions([]) == ""
+        assert merge_expositions(["", "# HELP x_total h\n"]) == ""
+        merged = merge_expositions(["", "# TYPE a_total counter\n"
+                                        "a_total 1\n"])
+        assert "a_total 1" in merged
+
+
+    def test_helpers_match_pbccs_tpu_on_seeded_expositions(self):
+        """parse_exposition, relabel_exposition and merge_expositions of
+        both packages give the same output on the same seeded
+        expositions (both registries' renders of the same updates,
+        hostile label values included)."""
+        from pbccs_tpu.obs import metrics as jmetrics
+
+        rng = np.random.default_rng(20261017)
+        parts = []
+        for p in range(3):
+            reg = MetricsRegistry()
+            for _ in range(int(rng.integers(3, 8))):
+                name = f"ccs_m{int(rng.integers(0, 4))}_total"
+                label = "".join(rng.choice(list('ab"\\}{,\n x='), 5))
+                reg.counter(name, "h", path=label).inc(
+                    float(rng.integers(1, 100)))
+            h = reg.histogram("ccs_lat_seconds", "lat",
+                              buckets=(1e-3, 1e-2, 1.0))
+            for v in rng.uniform(0, 2, 5):
+                h.observe(float(v))
+            reg.gauge("ccs_g", "g").set(float(rng.normal()))
+            parts.append(reg.render_prometheus())
+        for mod in (obs_metrics, jmetrics):
+            assert [mod.parse_exposition(t) for t in parts] == \
+                [jmetrics.parse_exposition(t) for t in parts]
+        relabeled = [obs_metrics.relabel_exposition(t, replica=f"h:{i}")
+                     for i, t in enumerate(parts)]
+        assert relabeled == [jmetrics.relabel_exposition(t, replica=f"h:{i}")
+                             for i, t in enumerate(parts)]
+        merged = obs_metrics.merge_expositions(relabeled)
+        assert merged == jmetrics.merge_expositions(relabeled)
+        assert obs_metrics.parse_exposition(merged) == \
+            jmetrics.parse_exposition(merged)
+
+
+# ------------------------------------------------------------ trace merge
+
+def _load_jax_trace_merge():
+    """tools/trace_merge.py, loaded from its file (tools/ is no package)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "tools", "trace_merge.py")
+    spec = importlib.util.spec_from_file_location("jax_trace_merge", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def chrome(events, origin=None, **meta):
+    doc = {"traceEvents": events, "meta": dict(meta)}
+    if origin is not None:
+        doc["meta"]["origin_unix"] = origin
+    return doc
+
+
+def span(name, ts, span_id=None, parent=None, remote_parent=None,
+         trace_id=None, **extra):
+    args = dict(extra)
+    if span_id is not None:
+        args["span_id"] = span_id
+    if parent is not None:
+        args["parent"] = parent
+    if remote_parent is not None:
+        args["remote_parent"] = remote_parent
+    if trace_id is not None:
+        args["trace_id"] = trace_id
+    return {"ph": "X", "name": name, "ts": ts, "dur": 5.0, "tid": 0,
+            "args": args}
+
+
+class TestMergeDegradation:
+    def test_empty_bundle_merges_to_valid_empty_doc(self):
+        merged = trace_merge.merge_docs(
+            trace_merge.expand_bundle({"replicas": {}}))
+        assert merged["traceEvents"][0]["name"] == "process_name"
+        assert merged["meta"]["processes"] == {"router": 1}
+        assert trace_merge.request_trees(merged) == {}
+
+    def test_totally_empty_input(self):
+        merged = trace_merge.merge_docs([])
+        assert merged["traceEvents"] == []
+        assert merged["meta"]["processes"] == {}
+
+    def test_zero_span_replica_merges_cleanly(self):
+        bundle = {"trace": chrome([span("a", 1.0, trace_id="t1",
+                                        span_id="s1")], origin=100.0),
+                  "replicas": {"r:1": chrome([], origin=100.5)}}
+        merged = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+        assert merged["meta"]["processes"] == {"router": 1,
+                                               "replica r:1": 2}
+        report = trace_merge.request_trees(merged)
+        assert report["t1"]["events"] == 1
+
+    def test_missing_origin_is_noted_not_keyerror(self):
+        bundle = {"trace": chrome([span("a", 1.0)], origin=100.0),
+                  "replicas": {"r:1": chrome([span("b", 2.0)])}}
+        merged = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+        assert merged["meta"]["unrebased_processes"] == ["replica r:1"]
+        # the unrebased process's events keep their own timebase
+        names = {ev.get("name") for ev in merged["traceEvents"]}
+        assert {"a", "b"} <= names
+
+    def test_malformed_replica_chrome_is_skipped_with_note(self):
+        bundle = {"trace": chrome([span("a", 1.0)], origin=1.0),
+                  "replicas": {"bad:1": None, "worse:2": "not a dict",
+                               "ok:3": chrome([span("c", 3.0)],
+                                              origin=1.5)}}
+        merged = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+        assert sorted(merged["meta"]["skipped_processes"]) == [
+            "replica bad:1", "replica worse:2"]
+        assert "replica ok:3" in merged["meta"]["processes"]
+
+    def test_alien_event_shapes_never_raise(self):
+        doc = chrome([
+            {"ph": "X", "name": "no_args", "ts": 1.0},       # args absent
+            {"ph": "X", "name": "bad_args", "ts": 2.0,
+             "args": "not a dict"},
+            "not even a dict",
+            {"ph": "X", "name": "ok", "ts": 3.0,
+             "args": {"trace_id": "t", "span_id": "s"}},
+        ], origin=5.0)
+        merged = trace_merge.merge_docs([("p", doc)])
+        report = trace_merge.request_trees(merged)
+        assert report["t"]["events"] == 1
+        assert trace_merge.trace_connected(merged, "t")
+
+    def test_mixed_type_trace_ids_skip_not_typeerror(self):
+        doc = chrome([
+            span("alien", 1.0, trace_id=42),          # int id: skipped
+            span("ok", 2.0, trace_id="t1", span_id="s1"),
+        ], origin=1.0)
+        merged = trace_merge.merge_docs([("p", doc)])
+        report = trace_merge.request_trees(merged)
+        assert list(report) == ["t1"]
+        assert report["t1"]["events"] == 1
+
+    def test_alien_name_and_unhashable_id_skip_not_typeerror(self):
+        doc = chrome([
+            {"ph": "X", "name": 5, "ts": 1.0,       # non-string name
+             "args": {"span_id": "s1", "trace_id": "t1"}},
+            {"ph": "X", "name": "ok", "ts": 2.0,
+             "id": ["unhashable"],                   # alien event id
+             "args": {"trace_id": "t1", "parent": ["also"],
+                      "span_id": "s2"}},
+        ], origin=1.0)
+        merged = trace_merge.merge_docs([("p", doc)])
+        report = trace_merge.request_trees(merged)
+        assert report["t1"]["events"] == 2
+        assert report["t1"]["spans"] == ["5", "ok"]
+
+    def test_non_numeric_meta_counts_degrade(self):
+        doc = chrome([span("a", 1.0)], origin=1.0,
+                     dropped_spans="garbage", open_spans=None)
+        merged = trace_merge.merge_docs([("p", doc)])
+        assert merged["meta"]["dropped_spans"] == 0
+
+    def test_cross_process_links_still_connect_after_hardening(self):
+        bundle = {
+            "trace": chrome([span("router.request", 1.0, span_id="rt-1",
+                                  trace_id="t1")], origin=100.0),
+            "replicas": {"r:1": chrome(
+                [span("serve.prep", 2.0, span_id="sp-1",
+                      remote_parent="rt-1", trace_id="t1")],
+                origin=100.2)},
+        }
+        merged = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+        assert trace_merge.trace_connected(merged, "t1")
+        report = trace_merge.request_trees(merged)
+        assert report["t1"]["processes"] == [1, 2]
+
+
+def test_trace_merge_matches_tools_trace_merge(tmp_path):
+    """The port's trace merge gives tools/trace_merge.py's document and
+    report on the same bundle: a router capture with retro spans and
+    two replica captures whose spans name them as remote parents
+    (seeded durations), plus the CLI writing it to a file."""
+    jmerge = _load_jax_trace_merge()
+    rng = np.random.default_rng(7)
+    router = obs_trace.Tracer(tag="router")
+    replicas = {f"127.0.0.1:{7000 + i}": obs_trace.Tracer(tag=f"rep{i}")
+                for i in range(2)}
+    names = sorted(replicas)
+    for q in range(6):
+        tid = f"{q:016x}"
+        rep = replicas[names[q % 2]]
+        with rep.span("serve.prep", ctx={"trace_id": tid,
+                                         "span_id": f"rt-q{q}"}):
+            with rep.span("serve.polish", zmws=1):
+                pass
+        router.add_span("router.request", float(rng.uniform(0, 0.01)),
+                        ctx={"trace_id": tid, "span_id": None},
+                        span_id=f"rt-q{q}", replica=names[q % 2])
+    bundle = json.loads(json.dumps(
+        {"type": "trace", "state": "stopped", "trace": router.to_chrome(),
+         "replicas": {n: t.to_chrome() for n, t in replicas.items()}}))
+    mine = trace_merge.merge_docs(trace_merge.expand_bundle(bundle))
+    ref = jmerge.merge_docs(jmerge.expand_bundle(bundle))
+    assert mine == ref
+    report = trace_merge.request_trees(mine)
+    assert report == jmerge.request_trees(ref)
+    assert len(report) == 6
+    assert all(r["components"] == 1 and len(r["processes"]) == 2
+               for r in report.values())
+    src = tmp_path / "bundle.json"
+    src.write_text(json.dumps(bundle))
+    assert trace_merge.main([str(src), "-o", str(tmp_path / "m.json")]) == 0
+    # the CLI names the router process after the bundle's file
+    assert json.loads((tmp_path / "m.json").read_text()) == \
+        jmerge.merge_docs(jmerge.expand_bundle(bundle, router_name="bundle"))

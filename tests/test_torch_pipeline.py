@@ -194,8 +194,9 @@ def test_wrappers_reject_unsupported_devices():
 def test_port_imports_without_jax():
     """pbccs_tpu_torch (every module, the Quiver path's, the CLI's, its
     resilience and observability tiers', the device fleet's, the tuner's,
-    the serving tier's and the tuner's referee named) and chip_smoke.py
-    import with jax and pbccs_tpu poisoned."""
+    the serving tier's with its router, supervisor and console, the
+    tuner's referee and the trace merge named) and chip_smoke.py import
+    with jax and pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -228,9 +229,11 @@ def test_port_imports_without_jax():
         "serve = {'pbccs_tpu_torch.' + n for n in\n"
         "         ('serve', 'serve.protocol', 'serve.batcher',\n"
         "          'serve.engine', 'serve.tenancy', 'serve.server',\n"
-        "          'serve.client', 'obs.httpexp')}\n"
+        "          'serve.client', 'obs.httpexp', 'serve.router',\n"
+        "          'serve.supervisor', 'obs.console')}\n"
         "assert serve <= names, serve - names\n"
         "names.add('pbccs_tpu_torch.tools.perf_gate')\n"
+        "names.add('pbccs_tpu_torch.tools.trace_merge')\n"
         "for name in sorted(names):\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"

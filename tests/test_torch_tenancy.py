@@ -1,14 +1,16 @@
 """The port's multi-tenant edge (pbccs_tpu_torch/serve/tenancy.py) on
 the CPU.
 
-Counterparts of tests/test_tenancy.py's cases that need no router (the
-router tier is not ported): TenantDirectory parsing, the resolve_tenant
+Counterparts of tests/test_tenancy.py's cases: TenantDirectory parsing, the resolve_tenant
 spoofing rule, FairQueue's weighted-DRR admission, the BurnMeter,
 RetryPolicy's server-hint backoff, an authenticated `ccs serve` front
 door (missing/bad token, spoofing), TLS (the local openssl makes a
 self-signed certificate; handshake aborts, a pinned CA, the HTTPS
 metrics endpoint), the online token-map reload and per-tenant shed
-rates.  The serve stacks run stub prep/polish functions on device="cpu"
+rates, and the router tier in front of it (link-token injection, tenant
+forwarding, quota/queue/shed verdicts against scripted fake replicas;
+the fleet's child serve args, authenticated health probes, the fleet
+admin verb behind auth).  The serve stacks run stub prep/polish functions on device="cpu"
 engines.  Parity with pbccs_tpu: both directories accept and refuse the
 same token files with the same tenants, and both fair queues admit and
 drain the same scripted traffic in the same order.  Every wait has a
@@ -25,8 +27,10 @@ import pytest
 from pbccs_tpu_torch.obs.metrics import MeasurementScope, default_registry
 from pbccs_tpu_torch.resilience.retry import RetriesExhausted, RetryPolicy
 from pbccs_tpu_torch.serve import protocol, tenancy
-from pbccs_tpu_torch.serve.client import CcsClient
+from pbccs_tpu_torch.serve.client import CcsClient, ServeError
+from pbccs_tpu_torch.serve.router import CcsRouter, RouterConfig, RouterServer
 from pbccs_tpu_torch.serve.server import CcsServer
+from pbccs_tpu_torch.serve.supervisor import build_fleet_parser, child_serve_args
 from pbccs_tpu_torch.serve.tenancy import (
     BurnMeter,
     FairQueue,
@@ -34,18 +38,8 @@ from pbccs_tpu_torch.serve.tenancy import (
     TenantDirectory,
     resolve_tenant,
 )
+from tests.test_torch_router import ZMW, FakeReplica, wait_until
 from tests.test_torch_serve import stub_engine
-
-ZMW = {"id": "m/1", "reads": [{"seq": "ACGTACGT"}] * 4}
-
-
-def wait_until(fn, timeout=10.0, step=0.02):
-    deadline = time.monotonic() + timeout
-    while time.monotonic() < deadline:
-        if fn():
-            return True
-        time.sleep(step)
-    return False
 
 
 # ---------------------------------------------------------------- helpers
@@ -60,6 +54,16 @@ def edge_directory():
     return directory(
         Tenant("alpha", "tok-alpha"),
         Tenant("beta", "tok-beta"),
+        Tenant("_router", "tok-router", priority=0, trusted=True))
+
+
+def router_directory():
+    """The router-tier cast: a quota-1 flooder, a weighted neighbor, a
+    never-shed priority-0 tenant, and the trusted link identity."""
+    return directory(
+        Tenant("alpha", "tok-alpha", max_inflight=1, priority=1),
+        Tenant("beta", "tok-beta", max_inflight=8, priority=1, weight=2),
+        Tenant("gold", "tok-gold", max_inflight=8, priority=0),
         Tenant("_router", "tok-router", priority=0, trusted=True))
 
 
@@ -389,6 +393,16 @@ class TestServeTLS:
         with CcsClient("127.0.0.1", srv.port, tls_ca=cert) as cli:
             assert cli.status(10.0)["type"] == "status"
 
+    def test_every_tls_session_answers_its_first_frame(self, tls_stack):
+        """Thirty fresh TLS sessions, each answering a status frame sent
+        right after its handshake: with TLS 1.3 session tickets on, one
+        in a few dozen stalled (the ticket raced the client's reader and
+        writer threads on one SSL object)."""
+        srv, cert = tls_stack
+        for _ in range(30):
+            with CcsClient("127.0.0.1", srv.port, tls_ca=cert) as cli:
+                assert cli.status(5.0)["type"] == "status"
+
     def test_wrong_ca_rejected_client_side(self, tls_stack, tmp_path):
         srv, _cert = tls_stack
         other = tmp_path / "other-ca.pem"
@@ -434,6 +448,256 @@ class TestServeTLS:
             assert b"200 OK" in data and b"ccs_test_metric" in data
         finally:
             httpd.shutdown()
+
+
+# ------------------------------------------------------------ router tier
+
+
+def make_tenant_router(fakes, tenants, **cfg):
+    defaults = dict(health_interval_s=0.05, health_timeout_s=0.2,
+                    connect_timeout_s=2.0)
+    defaults.update(cfg)
+    router = CcsRouter([f"127.0.0.1:{f.port}" for f in fakes],
+                       RouterConfig(**defaults),
+                       tenants=tenants, link_token="tok-router").start()
+    server = RouterServer(router, port=0, tenants=tenants).start()
+    return router, server
+
+
+class TestRouterTenancy:
+    def test_link_token_and_tenant_forwarding(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router([fake], router_directory())
+        try:
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-beta") as cli:
+                reply = cli.submit_wire(ZMW)
+                assert reply.reply(10.0)["type"] == "result"
+            frame = fake.submits[0]
+            # the replica link authenticates with the ROUTER's identity
+            assert frame[protocol.FIELD_AUTH] == "tok-router"
+            # ...and forwards the ORIGINAL submitter
+            assert frame[protocol.FIELD_TENANT] == {"name": "beta"}
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_spoofed_tenant_field_rewritten_at_edge(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router([fake], router_directory())
+        try:
+            (r,) = wire_call(server.port,
+                             [{"verb": "submit", "id": "s1", "zmw": ZMW,
+                               "auth": "tok-beta",
+                               "tenant": {"name": "gold"}}])
+            assert r["type"] == "result"
+            assert fake.submits[0][protocol.FIELD_TENANT] == \
+                {"name": "beta"}
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_unknown_forwarded_tenant_rejected(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router([fake], router_directory())
+        try:
+            scope = MeasurementScope(default_registry())
+            (r,) = wire_call(server.port,
+                             [{"verb": "submit", "id": "s1", "zmw": ZMW,
+                               "auth": "tok-router",
+                               "tenant": {"name": "ghost"}}])
+            assert r["code"] == protocol.ERR_UNAUTHORIZED
+            assert "ghost" in r["error"]
+            assert scope.counter_value("ccs_tenant_auth_failures_total",
+                                       reason="unknown_tenant") == 1
+            assert not fake.submits
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_quota_queues_then_drains_fairly(self):
+        fake = FakeReplica(mode="hold")
+        router, server = make_tenant_router(
+            [fake], router_directory(), fair_queue_depth=1,
+            retry_after_ms=321.0)
+        try:
+            with CcsClient("127.0.0.1", server.port, timeout=10.0,
+                           auth_token="tok-alpha") as cli:
+                h1 = cli.submit_wire(ZMW)       # fills alpha's 1 slot
+                assert wait_until(lambda: len(fake.submits) == 1)
+                h2 = cli.submit_wire(ZMW)       # parks in the fair queue
+                status = cli.status(10.0)
+                ten = status[protocol.FIELD_TENANCY]
+                rows = {r["name"]: r for r in
+                        ten[protocol.KEY_TEN_TENANTS]}
+                assert rows["alpha"]["inflight"] == 1
+                assert rows["alpha"]["queued"] == 1
+                assert ten[protocol.KEY_TEN_SHEDDING] is False
+                # past the queue bound: structured overloaded + hint
+                with pytest.raises(ServeError) as ei:
+                    cli.submit_wire(ZMW).reply(10.0)
+                assert ei.value.code == protocol.ERR_OVERLOADED
+                assert ei.value.retry_after_ms == 321.0
+                assert "over quota" in str(ei.value)
+                # freeing the slot drains the parked request
+                fake.release()
+                assert h1.reply(10.0)["type"] == "result"
+                assert wait_until(lambda: len(fake.submits) == 2)
+                fake.release()
+                assert h2.reply(10.0)["type"] == "result"
+                rows = {r["name"]: r for r in cli.status(10.0)
+                        [protocol.FIELD_TENANCY]
+                        [protocol.KEY_TEN_TENANTS]}
+                assert rows["alpha"]["completed"] == 2
+                assert rows["alpha"]["rejected"] == 1
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_burn_shedding_spares_priority_zero(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router(
+            [fake], router_directory(), shed_burn_threshold=0.5,
+            retry_after_ms=250.0)
+        try:
+            # feed the meter a 90% violation window
+            router._burn.observe("r", {"requests": 0, "violations": 0})
+            router._burn.observe("r", {"requests": 10, "violations": 9})
+            scope = MeasurementScope(default_registry())
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-alpha") as cli:
+                with pytest.raises(ServeError) as ei:
+                    cli.submit_wire(ZMW).reply(10.0)
+                assert ei.value.code == protocol.ERR_OVERLOADED
+                assert ei.value.retry_after_ms == 250.0
+                assert "shedding" in str(ei.value)
+                ten = cli.status(10.0)[protocol.FIELD_TENANCY]
+                assert ten[protocol.KEY_TEN_SHEDDING] is True
+                assert ten[protocol.KEY_TEN_BURN] == pytest.approx(0.9)
+            # priority 0 is never shed
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-gold") as cli:
+                assert cli.submit_wire(ZMW).reply(10.0)["type"] == "result"
+            assert scope.counter_value("ccs_tenant_rejects_total",
+                                       tenant="alpha", reason="shed") == 1
+            assert router.status()["shed"] == 1
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_shed_client_honors_retry_hint_no_hot_loop(self):
+        """Regression: a shed request must PACE on the server's
+        retry_after_ms, not hot-loop its retry budget instantly."""
+        fake = FakeReplica()
+        router, server = make_tenant_router(
+            [fake], router_directory(), shed_burn_threshold=0.5,
+            retry_after_ms=200.0)
+        try:
+            router._burn.observe("r", {"requests": 0, "violations": 0})
+            router._burn.observe("r", {"requests": 10, "violations": 10})
+            policy = RetryPolicy(max_attempts=3, base_delay_s=1e-4,
+                                 max_delay_s=2.0, jitter=0.0)
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-alpha") as cli:
+                t0 = time.monotonic()
+                with pytest.raises(RetriesExhausted):
+                    cli.submit_with_retry(ZMW, policy=policy)
+                elapsed = time.monotonic() - t0
+            # without the hint the two backoffs total ~0.3ms; with it
+            # they are 2 x 200ms
+            assert elapsed >= 0.35
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_close_flushes_parked_requests(self):
+        fake = FakeReplica(mode="hold")
+        router, server = make_tenant_router([fake], router_directory())
+        try:
+            with CcsClient("127.0.0.1", server.port, timeout=10.0,
+                           auth_token="tok-alpha") as cli:
+                cli.submit_wire(ZMW)
+                assert wait_until(lambda: len(fake.submits) == 1)
+                parked = cli.submit_wire(ZMW)
+                router.close(drain=False)
+                with pytest.raises(ServeError) as ei:
+                    parked.reply(10.0)
+                assert ei.value.code == protocol.ERR_CLOSED
+        finally:
+            router.close(drain=False)
+            server.shutdown()
+            fake.close()
+
+
+# ----------------------------------------------------------- fleet wiring
+
+
+class TestFleetWiring:
+    def test_child_serve_args_pass_edge_flags_down(self):
+        args = build_fleet_parser().parse_args(
+            ["--tlsCert", "c.pem", "--tlsKey", "k.pem",
+             "--authTokens", "t.json", "--serveArg=--maxBatch=8"])
+        tail = child_serve_args(args)
+        assert tail[tail.index("--tlsCert") + 1] == "c.pem"
+        assert tail[tail.index("--tlsKey") + 1] == "k.pem"
+        assert tail[tail.index("--authTokens") + 1] == "t.json"
+        assert tail[-1] == "--maxBatch=8"   # user overrides come last
+
+    def test_child_serve_args_stay_plain_without_flags(self):
+        tail = child_serve_args(build_fleet_parser().parse_args([]))
+        assert "--tlsCert" not in tail and "--authTokens" not in tail
+
+    def test_fleet_verb_requires_auth(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router([fake], router_directory())
+        try:
+            (r,) = wire_call(server.port,
+                             [{"verb": protocol.VERB_FLEET, "id": "f1",
+                               "action": "list"}])
+            assert r["code"] == protocol.ERR_UNAUTHORIZED
+            (r,) = wire_call(server.port,
+                             [{"verb": protocol.VERB_FLEET, "id": "f2",
+                               "action": "list", "auth": "tok-router"}])
+            assert r["type"] == protocol.TYPE_FLEET
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_health_probes_authenticate(self):
+        """An authenticated replica stays healthy only when the router's
+        link token is valid; a bad token benches it (probe errors are
+        health strikes, not parse garbage)."""
+        eng = stub_engine(max_batch=2, max_wait_ms=20.0, max_pending=16)
+        eng.start()
+        replica = CcsServer(eng, port=0, tenants=edge_directory())
+        replica.start()
+        good = CcsRouter([f"127.0.0.1:{replica.port}"],
+                         RouterConfig(health_interval_s=0.05,
+                                      health_timeout_s=0.5,
+                                      connect_timeout_s=2.0),
+                         link_token="tok-router").start()
+        bad = CcsRouter([f"127.0.0.1:{replica.port}"],
+                        RouterConfig(health_interval_s=0.05,
+                                     health_timeout_s=0.5,
+                                     connect_timeout_s=2.0),
+                        link_token="tok-wrong").start()
+        try:
+            assert wait_until(
+                lambda: good.status()["replicas"][0]["healthy"])
+            assert wait_until(
+                lambda: not bad.status()["replicas"][0]["healthy"])
+        finally:
+            good.close()
+            bad.close()
+            replica.shutdown()
+            eng.close()
 
 
 # ------------------------------------------- online token-map reload
@@ -578,6 +842,61 @@ class TestReloadableDirectory:
 
 
 class TestPerTenantShedRate:
+    def burn_directory(self):
+        return directory(
+            Tenant("tolerant", "tok-tol", shed_burn_rate=0.95),
+            Tenant("strict", "tok-str", shed_burn_rate=0.2),
+            Tenant("alpha", "tok-alpha"),
+            Tenant("_router", "tok-router", priority=0, trusted=True))
+
+    def feed_burn(self, router, rate=0.9):
+        router._burn.observe("r", {"requests": 0, "violations": 0})
+        router._burn.observe("r", {"requests": 100,
+                                   "violations": int(100 * rate)})
+
+    def test_per_tenant_rate_overrides_fleet(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router(
+            [fake], self.burn_directory(), shed_burn_threshold=0.5)
+        try:
+            self.feed_burn(router, 0.9)
+            # burn 0.9: the fleet default (0.5) sheds alpha, the strict
+            # tenant's own 0.2 sheds it too, the tolerant tenant's 0.95
+            # lets its work through
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-tol") as cli:
+                assert cli.submit_wire(ZMW).reply(10.0)["type"] == "result"
+            for tok in ("tok-str", "tok-alpha"):
+                with CcsClient("127.0.0.1", server.port,
+                               auth_token=tok) as cli:
+                    with pytest.raises(ServeError) as ei:
+                        cli.submit_wire(ZMW).reply(10.0)
+                    assert ei.value.code == protocol.ERR_OVERLOADED, tok
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
+    def test_per_tenant_rate_active_with_fleet_shedding_off(self):
+        fake = FakeReplica()
+        router, server = make_tenant_router(
+            [fake], self.burn_directory())   # fleet threshold 0 = off
+        try:
+            self.feed_burn(router, 0.9)
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-str") as cli:
+                with pytest.raises(ServeError) as ei:
+                    cli.submit_wire(ZMW).reply(10.0)
+                assert ei.value.code == protocol.ERR_OVERLOADED
+            # no per-tenant rate + fleet off = no shedding at all
+            with CcsClient("127.0.0.1", server.port,
+                           auth_token="tok-alpha") as cli:
+                assert cli.submit_wire(ZMW).reply(10.0)["type"] == "result"
+        finally:
+            router.close()
+            server.shutdown()
+            fake.close()
+
     def test_token_file_round_trip(self, tmp_path):
         p = tmp_path / "tokens.json"
         write_tokens(p, [

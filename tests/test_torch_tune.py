@@ -821,3 +821,16 @@ def test_tune_cli_serve_leg_merges_its_winner(tmp_path, monkeypatch,
     assert prof.knobs == {"prepare_workers": 2, "serve_max_batch": 8,
                           "warmup_buckets": ["2x3x40"]}
     assert summary["profile_id"] == prof.profile_id
+
+
+def test_serve_and_router_flags_default_to_ladder():
+    """--maxBatch/--maxWaitMs/--routerSpillDepth parse to None so
+    run_serve/run_router can resolve flag > profile > default."""
+    from pbccs_tpu_torch.serve.router import build_router_parser
+    from pbccs_tpu_torch.serve.server import build_serve_parser
+
+    s = build_serve_parser().parse_args([])
+    assert s.maxBatch is None and s.maxWaitMs is None
+    assert s.tuneProfile is None
+    r = build_router_parser().parse_args(["--replica", "h:1"])
+    assert r.routerSpillDepth is None and r.tuneProfile is None
