@@ -207,6 +207,18 @@ script exits non-zero):
      (each slot's incarnation bumped, rolling_restart_begin / _done in
      the ledger), the fleet's control process holding no context, and
      SIGTERM: exit 0 with no child left.
+ 17. mesh: phase 4's first batch of drafted ZMWs (its draft reused, no
+     second draft) through BatchPolisher.refine + consensus_qvs
+     unsharded on cuda:0, then over make_zmw_mesh(2, 2, ["cuda:0"] * 4)
+     and make_zmw_mesh(1, 4, ["cuda:0"] * 4) (blocks of 3 reads at
+     R = 12), and over the distinct cards (n x 1 and 1 x n) when the
+     machine has n >= 2 of them (else a line says the cross-card check
+     did not run), launch counters zeroed just before and read just
+     after each: per grid the records (sequence, QVs) on the parity
+     standard against the unsharded run (all required; the byte-equal
+     count printed), refine results equal, K1 and K3 launched (in all
+     and per block), every block's tensors on its cell's device, wall
+     and peak device memory beside the unsharded run's.
 Then each phase's seconds as one JSON line, the card's name and power
 limit, the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -355,12 +367,13 @@ def kernel_fixture(chunks, device):
                      [0] * len(c.reads), [len(truth)] * len(c.reads))
              for c, truth in chunks]
     pol = BatchPolisher(tasks, device=device)
-    s = pol._state
+    blk = pol._grid[0][0]
+    s = blk.st
     ZR = pol._Z * pol._R
     flat = lambda a: a.reshape((ZR,) + a.shape[2:])  # noqa: E731
-    tables = flat(pol._tables_dev[:, None].expand(
-        (pol._Z, pol._R) + pol._tables_dev.shape[1:]))
-    return dict(reads=flat(pol._reads_dev), rlens=flat(pol._rlens_dev),
+    tables = flat(blk.table[:, None].expand(
+        (pol._Z, pol._R) + blk.table.shape[1:]))
+    return dict(reads=flat(blk.reads), rlens=flat(blk.rlens),
                 win_tpl=flat(s.win_tpl), win_trans=flat(s.win_trans),
                 wlens=flat(s.wlens), tables=tables, W=pol._W,
                 shape=dict(Z=pol._Z, R=pol._R, Jmax=pol._Jmax,
@@ -578,6 +591,7 @@ def phase_dense(fx, kept) -> dict:
 
 
 def phase_main(chunks, truths) -> dict:
+    from pbccs_tpu_torch import pipeline as tp
     from pbccs_tpu_torch.ops import dense_score_cuda as ds
     from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
     from pbccs_tpu_torch.pipeline import Failure, ResultTally, process_chunks
@@ -618,9 +632,19 @@ def phase_main(chunks, truths) -> dict:
                          (on * per_block).sum()))
         return k3_batch(*args, **kwargs)
 
+    # the first batch's drafted ZMWs, which phase 17 polishes again
+    drafted = []
+    prepare_batch = tp.prepare_batch
+
+    def keep_drafts(*args, **kwargs):
+        tally, preps = prepare_batch(*args, **kwargs)
+        drafted.append(preps)
+        return tally, preps
+
     originals = (fc._forward_coeffs, fc._backward_coeffs,
                  ds.band_read_windows, ds.dense_patch_grids,
                  ds.dense_interior_scores_batch)
+    tp.prepare_batch = keep_drafts
     fc._forward_coeffs = counted("k1_coefficients", originals[0])
     fc._backward_coeffs = counted("k1_coefficients", originals[1])
     ds.band_read_windows = counted("read_windows", originals[2], "cols")
@@ -638,6 +662,7 @@ def phase_main(chunks, truths) -> dict:
                                        device="cuda"))
         torch.cuda.synchronize()
     finally:
+        tp.prepare_batch = prepare_batch
         (fc._forward_coeffs, fc._backward_coeffs, ds.band_read_windows,
          ds.dense_patch_grids, ds.dense_interior_scores_batch) = originals
     wall = time.monotonic() - t0
@@ -675,7 +700,7 @@ def phase_main(chunks, truths) -> dict:
         raise AssertionError("main path tallied ZMWs as Other")
     if tally.total != len(chunks):
         raise AssertionError(f"tally counts {tally.total} of {len(chunks)}")
-    return out, tally
+    return out, tally, drafted[0]
 
 
 def phase_cross(chunks) -> dict:
@@ -958,11 +983,12 @@ def phase_fallbacks(rng) -> dict:
             t0 = time.monotonic()
             pol = BatchPolisher([task], device=dev)
             j0 = pol._Jmax
-            st = pol._state
+            blk = pol._grid[0][0]
+            st = blk.st
             arrow_fill.launches = 0
-            dr.score_slot_grid(st, pol._reads_dev, pol._rlens_dev,
-                               pol._strands_dev, pol._tables_dev,
-                               pol._real_dev, *dr.slot_grid(j0, st.tpl.device),
+            dr.score_slot_grid(st, blk.reads, blk.rlens, blk.strands,
+                               blk.table, blk.real_rows,
+                               *dr.slot_grid(j0, st.tpl.device),
                                dr.slot_candidates(st.tpl, st.tlens),
                                min_fast_edge=MIN_FAST_EDGE_WLEN)
             refills = arrow_fill.launches
@@ -2958,6 +2984,148 @@ def _fleet_records(records, replicas) -> dict | None:
             "replica_snapshots": reps}
 
 
+def _block_tensors(blk):
+    """Every tensor a grid block holds: its reads and its loop state."""
+    import dataclasses
+
+    out = [blk.reads, blk.rlens, blk.strands, blk.table, blk.real_rows]
+    for f in dataclasses.fields(blk.st):
+        v = getattr(blk.st, f.name)
+        out.extend(v if isinstance(v, tuple) else [v])
+    return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+def _mesh_polish(tasks, mesh, settings, card) -> dict:
+    """One refine + QV sweep of `tasks`, unsharded on `card` (mesh None)
+    or over `mesh`, launch counters zeroed just before and read just
+    after; K1 / K3 launches attributed to the grid block whose reads
+    they ran on (its setup and rebuild fills, its scoring)."""
+    from pbccs_tpu_torch.parallel import BatchPolisher
+    from pbccs_tpu_torch.parallel import batch as pb
+    from pbccs_tpu_torch.parallel import device_refine as dr
+
+    by_reads: dict[int, dict] = {}
+
+    def attributed(fn, reads_at):
+        def wrapper(*args, **kwargs):
+            before = _launch_counts()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tally = by_reads.setdefault(id(args[reads_at]), {
+                    "arrow_fill": 0, "dense_score": 0})
+                after = _launch_counts()
+                for k in tally:
+                    tally[k] += after[k] - before[k]
+        return wrapper
+
+    cards = sorted({torch.device(card).index or 0} if mesh is None else
+                   {d.index for d in mesh.distinct_devices()})
+    originals = pb._batch_setup, dr.slot_grid_partial
+    pb._batch_setup = attributed(originals[0], 3)
+    dr.slot_grid_partial = attributed(originals[1], 1)
+    for i in cards:
+        torch.cuda.synchronize(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    _zero_launch_counts()
+    t0 = time.monotonic()
+    try:
+        pol = BatchPolisher(tasks, min_zscore=settings.min_zscore, mesh=mesh,
+                            device=card if mesh is None else None)
+        res = pol.refine(settings.refine)
+        qvs = pol.consensus_qvs(
+            skip={z for z, r in enumerate(res) if not r.converged})
+        for i in cards:
+            torch.cuda.synchronize(i)
+    finally:
+        pb._batch_setup, dr.slot_grid_partial = originals
+    wall = time.monotonic() - t0
+    launches = _launch_counts()
+    cells = [[str(d) for d in row] for row in
+             (pol._mesh.devices if mesh is None else mesh.devices)]
+    blocks, on_device = [], True
+    for i, row in enumerate(pol._grid):
+        for j, blk in enumerate(row):
+            want = torch.device(cells[i][j])
+            on_device &= all(t.device == want for t in _block_tensors(blk))
+            blocks.append({"cell": [i, j], "device": cells[i][j],
+                           "launches": by_reads.get(id(blk.reads), {})})
+    return {"pol": pol, "results": [vars(r) for r in res], "qvs": qvs,
+            "shapes": [pol._Imax, pol._Jmax, pol._R, pol._Z],
+            "wall_s": wall,
+            # summed over the grid's cards
+            "max_memory_allocated": sum(torch.cuda.max_memory_allocated(i)
+                                        for i in cards),
+            "launches": launches, "blocks": blocks, "on_device": on_device}
+
+
+def phase_mesh(drafted, card: str = "cuda:0") -> dict:
+    """17. mesh: phase 4's first batch of drafted ZMWs (its draft reused)
+    polished by BatchPolisher.refine + consensus_qvs unsharded on cuda:0
+    and over ('zmw' x 'read') grids of cuda:0 named four times (2 x 2,
+    and 1 x 4: blocks of 3 reads at R = 12), then over the distinct cards
+    (n x 1 and 1 x n) when the machine has n >= 2; each grid's records
+    (sequence and QVs per ZMW) on the parity standard against the
+    unsharded run (same sequence, QVs within 1; the byte-equal count
+    printed), its refine results equal, K1 and K3 launched, every block's
+    tensors on its cell's device."""
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.parallel import make_zmw_mesh
+
+    tasks = tp._polish_tasks(drafted)
+    settings = tp.ConsensusSettings()
+    ref = _mesh_polish(tasks, None, settings, card)
+    grids = [(f"2x2 {card}", make_zmw_mesh(2, 2, [card] * 4)),
+             (f"1x4 {card}", make_zmw_mesh(1, 4, [card] * 4))]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        grids += [(f"{n_cards}x1 cards", make_zmw_mesh(n_cards, 1)),
+                  (f"1x{n_cards} cards", make_zmw_mesh(1, n_cards))]
+    else:
+        print("chip_smoke: mesh: the cross-card check did not run on this "
+              "machine (one card)", flush=True)
+    rows, failed = [], []
+    for name, mesh in grids:
+        got = _mesh_polish(tasks, mesh, settings, card)
+        parity = byte_equal = 0
+        for z in range(len(tasks)):
+            a, b = ref["pol"].tpls[z], got["pol"].tpls[z]
+            qa, qb = ref["qvs"][z], got["qvs"][z]
+            if np.array_equal(a, b) and len(qa) == len(qb) and (
+                    not len(qa) or np.abs(qa.astype(np.int64)
+                                          - qb.astype(np.int64)).max() <= 1):
+                parity += 1
+                byte_equal += int(np.array_equal(qa, qb))
+        row = {"grid": name, "shapes": got["shapes"],
+               "records": len(tasks), "on_parity_standard": parity,
+               "byte_equal": byte_equal,
+               "refine_results_equal": got["results"] == ref["results"],
+               "launches": got["launches"], "blocks": got["blocks"],
+               "blocks_on_their_devices": got["on_device"],
+               "wall_s": got["wall_s"],
+               "max_memory_allocated": got["max_memory_allocated"]}
+        rows.append(row)
+        if (parity != len(tasks) or not row["refine_results_equal"]
+                or not got["on_device"]
+                or min(got["launches"][k] for k in
+                       ("arrow_fill", "dense_score")) <= 0):
+            failed.append(name)
+    out = {"phase": "mesh", "zmws": len(tasks), "cards": n_cards,
+           "unsharded": {"shapes": ref["shapes"], "launches": ref["launches"],
+                         "wall_s": ref["wall_s"],
+                         "max_memory_allocated":
+                             ref["max_memory_allocated"],
+                         "converged": sum(r["converged"]
+                                          for r in ref["results"])},
+           "grids": rows}
+    emit(out)
+    if min(ref["launches"][k] for k in ("arrow_fill", "dense_score")) <= 0:
+        raise AssertionError("mesh: the unsharded polish launched no kernel")
+    if failed:
+        raise AssertionError(f"mesh: grids off the standard: {failed}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2987,7 +3155,8 @@ def main() -> int:
     dense = timed("dense_score", phase_dense, fx, kept)
     W = fx["W"]
     del fx, kept    # phase 4's peak memory is the main path's alone
-    main_path, main_tally = timed("main_path", phase_main, chunks, truths)
+    main_path, main_tally, drafted = timed("main_path", phase_main, chunks,
+                                           truths)
     timed("cross_device", phase_cross, chunks[:N_CROSS])
     k2 = timed("quiver_fill", phase_quiver_fill,
                quiver_fixture(chunks[0], truths[0], "cuda"))
@@ -3006,6 +3175,7 @@ def main() -> int:
     serve_out = timed("serve", phase_serve, cli_out, fleet_out)
     timed("router", phase_router, cli_out, serve_out,
           {f"{CLI_MOVIE}/{hole}": t for hole, t in enumerate(truths)})
+    timed("mesh", phase_mesh, drafted)
     emit({"phase_seconds": seconds})
 
     # K1's launch on the main path: alpha and beta together at the

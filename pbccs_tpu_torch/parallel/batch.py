@@ -1,9 +1,13 @@
 """Batched ZMW polishing: many ZMWs per device program, in lockstep.
 
-Port of pbccs_tpu.parallel.batch, single device.  Z bucketed ZMWs are
-polished together: one (Z*R)-read fill per rebuild, and the whole
-refinement loop plus the QV sweep run on the device
-(parallel.device_refine), so the host fetches once at the end.  Per-ZMW
+Port of pbccs_tpu.parallel.batch.  Z bucketed ZMWs are polished
+together: one (Z*R)-read fill per rebuild, and the whole refinement loop
+plus the QV sweep run on the device (parallel.device_refine), so the
+host fetches once at the end.  With a mesh (parallel.mesh, a ('zmw' x
+'read') grid of devices) the batch splits into one (Z/nz, R/nr) block of
+reads per grid cell, each on its cell's device: per-read work (fills,
+the read gate, scoring) runs per block, per-ZMW work on the row's first
+device, and the read-axis sums are gathered there in block order.  Per-ZMW
 selection semantics are those of the JAX package's device loop
 (favorability floor, greedy well-separated subset, template-hash cycle
 trim); converged ZMWs drop out of the mutation workload.
@@ -16,11 +20,11 @@ shapes).
 
 A batch's host marshalling (premarshal) may be built ahead of time on a
 prepare thread of the device fleet's scheduled pipeline and adopted by
-the polisher (`prebaked=`).  Left out of the port: the mesh (a read-axis
-all-reduce across cards) and the straggler continuation.  The JAX
-package's host refinement loop is not ported: the device loop handles
-the two cases the JAX device loop bails to it for (tiny read windows, a
-template outgrowing its bucket) itself."""
+the polisher (`prebaked=`).  Left out of the port: the straggler
+continuation.  The JAX package's host refinement loop is not ported: the
+device loop handles the two cases the JAX device loop bails to it for
+(tiny read windows, a template outgrowing its bucket) itself, with or
+without a mesh."""
 
 from __future__ import annotations
 
@@ -38,8 +42,7 @@ from pbccs_tpu_torch.models.arrow.params import (
     snr_to_transition_table_host,
     template_transition_params,
 )
-from pbccs_tpu_torch.models.arrow.refine import (RefineOptions, RefineResult,
-                                                 favorability_threshold)
+from pbccs_tpu_torch.models.arrow.refine import RefineOptions, RefineResult
 from pbccs_tpu_torch.models.arrow.scorer import (
     ADD_ALPHABETAMISMATCH,
     ADD_POOR_ZSCORE,
@@ -56,6 +59,9 @@ from pbccs_tpu_torch.obs import roofline as obs_roofline
 from pbccs_tpu_torch.obs.metrics import default_registry, log_buckets
 from pbccs_tpu_torch.ops.fwdbwd_cuda import check_polisher_width
 from pbccs_tpu_torch.parallel import device_refine as dr
+from pbccs_tpu_torch.parallel.mesh import (READ_AXIS, ZMW_AXIS, Mesh,
+                                           as_device, make_zmw_mesh, pad_to,
+                                           shard_batch)
 from pbccs_tpu_torch.runtime.timing import device_fetch
 
 # bucket fill / padding-waste observability: padding of the (Z, R) axes is
@@ -82,11 +88,6 @@ _m_read_fill = _reg.histogram("ccs_batch_fill_ratio",
 MIN_FAST_EDGE_WLEN = 8
 
 
-def pad_to(n: int, q: int) -> int:
-    """Smallest multiple of q that is >= n (q >= 1)."""
-    return ((n + q - 1) // q) * q
-
-
 def _jmax_bucket(max_len: int) -> int:
     """Template-axis bucket: headroom proportional to length, because net
     insertions during refinement scale with template length."""
@@ -110,7 +111,8 @@ def length_bucket(tpl_len: int, max_read_len: int) -> tuple[int, int]:
 
 def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
                      max_tpl_len: int, *,
-                     buckets: tuple[int, ...] | None = None
+                     buckets: tuple[int, ...] | None = None,
+                     zq: int = 1, rq: int = 1
                      ) -> tuple[int, int, int, int]:
     """The (Imax, Jmax, R, Z) a BatchPolisher with these inputs runs at.
     `buckets` = (Imax, Jmax, R[, Z]) lower bounds of a parent batch: a
@@ -120,9 +122,11 @@ def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
     padded with empty ZMWs to the parent's Z, so every tensor op runs at
     the parent's shapes -- torch's CUDA reductions choose their summation
     order by shape, and only equal shapes give a surviving ZMW the
-    parent's results bit for bit."""
+    parent's results bit for bit.  Under a mesh of zq x rq devices Z pads
+    to a multiple of zq and R to one of max(4, rq), so each grid cell
+    holds an equal block."""
     Z = n_zmws
-    R = pad_to(max_reads, 4)
+    R = pad_to(max_reads, max(4, rq))
     Imax = _imax_bucket(max_read_len + 8)
     Jmax = _jmax_bucket(max_tpl_len)
     if buckets is not None:
@@ -134,7 +138,7 @@ def effective_shapes(n_zmws: int, max_reads: int, max_read_len: int,
             Jmax = max(Jmax, buckets[1])
         if len(buckets) > 3:
             Z = max(Z, buckets[3])
-    return Imax, Jmax, R, Z
+    return Imax, Jmax, R, pad_to(Z, zq)
 
 
 @dataclasses.dataclass
@@ -187,10 +191,11 @@ def premarshal_nbytes(shapes: tuple[int, int, int, int]) -> int:
 
 
 def premarshal(tasks: Sequence[ZmwTask], *,
-               buckets: tuple[int, ...] | None = None
-               ) -> PrebakedBatch:
+               buckets: tuple[int, ...] | None = None,
+               zq: int = 1, rq: int = 1) -> PrebakedBatch:
     """Marshal a ZmwTask batch into its bucket-shaped numpy planes
-    (effective_shapes geometry).  Pure host work."""
+    (effective_shapes geometry; zq, rq: the mesh's axis sizes).  Pure
+    host work."""
     if not tasks:
         raise ValueError("empty batch")
     Imax, Jmax, R, Z = effective_shapes(
@@ -198,7 +203,7 @@ def premarshal(tasks: Sequence[ZmwTask], *,
         max(len(t.reads) for t in tasks),
         max((len(r) for t in tasks for r in t.reads), default=8),
         max(len(t.tpl) for t in tasks),
-        buckets=buckets)
+        buckets=buckets, zq=zq, rq=rq)
 
     snrs = np.full((Z, 4), 8.0)
     reads = np.full((Z, R, Imax), 4, np.int8)
@@ -273,24 +278,19 @@ def _update_active(active, ll_a, ll_b, rlens, tstarts, tends):
     return active & mated_mask(ll_a, ll_b, rlens, tstarts, tends)
 
 
-def _favorability_eps(baselines, active):
-    """(Z,) per-round favorability floor from the current baselines and
-    read-active mask (refine.favorability_threshold)."""
-    return favorability_threshold(
-        torch.where(active, baselines.abs(), 0.0).sum(1))
-
-
 class BatchPolisher:
-    """Z bucketed ZMWs polished in lockstep on one device.
+    """Z bucketed ZMWs polished in lockstep on one device or on a mesh.
 
     Per-ZMW semantics of the reference's ArrowMultiReadMutationScorer +
     RefineConsensus, with leading (Z,) batch axes.  Runs on `device`
     (default: the card; `device="cpu"` runs the kernels' plain
-    versions)."""
+    versions), or over `mesh` (parallel.mesh.make_zmw_mesh); with a mesh,
+    `device`, if given, must be the mesh's first device."""
 
     def __init__(self, tasks: Sequence[ZmwTask],
                  config: ArrowConfig | None = None,
-                 min_zscore: float = float("nan"), *,
+                 min_zscore: float = float("nan"),
+                 mesh: Mesh | None = None, *,
                  buckets: tuple[int, ...] | None = None,
                  device=None, prebaked: PrebakedBatch | None = None):
         """`prebaked`: a PrebakedBatch built ahead of time on a prepare
@@ -299,25 +299,37 @@ class BatchPolisher:
         effective shapes, else re-marshalled."""
         if not tasks:
             raise ValueError("empty batch")
-        self.device = resolve_device(device)
+        if mesh is None:
+            self.device = resolve_device(device)
+            self._mesh = make_zmw_mesh(1, 1, [self.device])
+        else:
+            self.device = mesh.devices[0, 0]
+            if device is not None and as_device(device) != self.device:
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"device {self.device}")
+            self._mesh = mesh
+        self.mesh = mesh
         self.config = config or ArrowConfig()
         self.min_zscore = min_zscore
         self.n_zmws = len(tasks)
         self.tpls: list[np.ndarray] = [np.asarray(t.tpl, np.int8)
                                        for t in tasks]
 
+        zq, rq = self._mesh.shape[ZMW_AXIS], self._mesh.shape[READ_AXIS]
         pb = prebaked
         if pb is None or pb.shapes != effective_shapes(
                 len(tasks), max(len(t.reads) for t in tasks),
                 max((len(r) for t in tasks for r in t.reads), default=8),
-                max(len(t.tpl) for t in tasks), buckets=buckets) \
+                max(len(t.tpl) for t in tasks), buckets=buckets,
+                zq=zq, rq=rq) \
                 or len(pb.tasks) != len(tasks) \
                 or any(a is not b for a, b in zip(pb.tasks, tasks)):
-            pb = premarshal(tasks, buckets=buckets)
+            pb = premarshal(tasks, buckets=buckets, zq=zq, rq=rq)
         self._Imax, self._Jmax, self._R, self._Z = pb.shapes
         self._W = effective_band_width(self.config.banding, self._Jmax)
         # refuse here, before any launch, not mid-refine
-        check_polisher_width(self._W, self.device)
+        for dev in self._mesh.distinct_devices():
+            check_polisher_width(self._W, dev)
         self._reads = pb.reads
         self._rlens = pb.rlens
         self._strands = pb.strands
@@ -341,11 +353,13 @@ class BatchPolisher:
         # batch compactly in postmortem dumps
         self._flight_tag = f"{tasks[0].id}+{self.n_zmws}"
         # the bucket's roofline card before the first _setup, so its
-        # execution charge finds the card
-        obs_roofline.note_bucket(
-            imax=self._Imax, jmax=self._Jmax, r=self._R, z=self._Z,
-            width=self._W, guided_passes=guided_fill_passes(self._Jmax),
-            device=self.device)
+        # execution charge finds the card; mesh runs skip it (the card
+        # counts the unsharded program)
+        if mesh is None:
+            obs_roofline.note_bucket(
+                imax=self._Imax, jmax=self._Jmax, r=self._R, z=self._Z,
+                width=self._W, guided_passes=guided_fill_passes(self._Jmax),
+                device=self.device)
         self._setup()
 
     # --------------------------------------------------- AddRead statistics
@@ -356,7 +370,11 @@ class BatchPolisher:
         recomputed in f64 for reporting."""
         if self._stats_host is not None:
             return
-        stats = device_fetch(self._addread_stats_dev, np.float64)
+        # one fetch per block, each (5, Zb, Rb), tiled back to (5, Z, R)
+        stats = np.concatenate([
+            np.concatenate([device_fetch(blk, np.float64) for blk in row],
+                           axis=2)
+            for row in self._addread_stats_dev], axis=1)
         ll_a_h, ll_b_h, mu_h, var_h, statuses_f = stats
         statuses = statuses_f.astype(np.int32)
         real = self._real_rows
@@ -405,9 +423,6 @@ class BatchPolisher:
 
     # ------------------------------------------------------------------ setup
 
-    def _dev(self, arr) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(arr), device=self.device)
-
     def _template_arrays(self):
         Z = self._Z
         tl = np.full((Z, self._Jmax), 4, np.int8)
@@ -422,25 +437,36 @@ class BatchPolisher:
 
     def _setup(self) -> None:
         """Build every read's window fills and gate the reads on the
-        device (mating test + Z-score read gate).  The device tensors
-        the refinement loop carries are kept as one RefineLoopState
-        (self._state), which refine() replaces with the loop's final
-        state."""
+        device (mating test + Z-score read gate), block by block of the
+        grid (one block without a mesh): self._grid holds each cell's
+        device_refine.Block, which refine() replaces with the loop's
+        final state."""
         tl, tlens = self._template_arrays()
-        self._reads_dev = self._dev(self._reads)
-        self._rlens_dev = self._dev(self._rlens)
-        self._strands_dev = self._dev(self._strands)
-        self._tables_dev = self._dev(self._host_tables)
-        self._real_dev = self._dev(self._real_rows)
-        tpl, tlens_d = self._dev(tl), self._dev(tlens)
-        tstarts, tends = self._dev(self._tstarts), self._dev(self._tends)
-        s = _batch_setup(tpl, tlens_d, self._tables_dev, self._reads_dev,
-                         self._rlens_dev, self._strands_dev, tstarts, tends,
-                         self._W, guided_fill_passes(self._Jmax))
+        per_read = ("reads", "rlens", "strands", "tstarts", "tends", "real")
+        planes = shard_batch(self._mesh, dict(
+            tpl=tl, tlens=tlens, tables=self._host_tables,
+            reads=self._reads, rlens=self._rlens, strands=self._strands,
+            tstarts=self._tstarts, tends=self._tends, real=self._real_rows),
+            read_axis_of=lambda path: 1 if path[0] in per_read else None)
+        nz, nr = self._mesh.devices.shape
+        self._grid, self._addread_stats_dev = [], []
+        for i in range(nz):
+            row = [self._setup_block({k: v[i][j] for k, v in planes.items()})
+                   for j in range(nr)]
+            self._grid.append([blk for blk, _ in row])
+            self._addread_stats_dev.append([st for _, st in row])
         # charge this execution of the canonical program against the
         # bucket's card (no-op without one)
         obs_roofline.charge_execution(imax=self._Imax, jmax=self._Jmax,
                                       r=self._R, z=self._Z)
+        self._stats_host = None
+
+    def _setup_block(self, p: dict):
+        """One grid cell's setup on its device: (device_refine.Block,
+        (5, Zb, Rb) AddRead statistics)."""
+        s = _batch_setup(p["tpl"], p["tlens"], p["tables"], p["reads"],
+                         p["rlens"], p["strands"], p["tstarts"], p["tends"],
+                         self._W, guided_fill_passes(self._Jmax))
         ll_a, ll_b = s.fill.ll_a, s.fill.ll_b
         z32 = (ll_b - s.mu) / torch.sqrt(torch.clamp(s.var, min=1e-12))
         if np.isnan(self.min_zscore):
@@ -448,61 +474,68 @@ class BatchPolisher:
         else:
             ok_z = torch.isfinite(z32) & (
                 z32 >= float(np.float32(self.min_zscore)))
-        mated = mated_mask(ll_a, ll_b, self._rlens_dev, tstarts, tends)
-        real = self._real_dev
+        mated = mated_mask(ll_a, ll_b, p["rlens"], p["tstarts"], p["tends"])
+        real = p["real"]
         statuses = torch.where(
             ~real, -1,
             torch.where(~mated, ADD_ALPHABETAMISMATCH,
                         torch.where(~ok_z, ADD_POOR_ZSCORE, ADD_SUCCESS)))
-        self._addread_stats_dev = torch.stack(
-            [ll_a, ll_b, s.mu, s.var, statuses.to(ll_b.dtype)])
-        self._stats_host = None
+        stats = torch.stack([ll_a, ll_b, s.mu, s.var,
+                             statuses.to(ll_b.dtype)])
 
-        Z, Jmax, dev = self._Z, self._Jmax, self.device
-        zeros = torch.zeros(Z, dtype=torch.int32, device=dev)
-        self._state = dr.RefineLoopState(
-            tpl=tpl, tlens=tlens_d, tstarts=tstarts, tends=tends,
-            win_tpl=s.win_tpl, win_trans=s.win_trans, wlens=s.wlens,
-            alpha=s.fill.alpha, beta=s.fill.beta,
+        tpl = p["tpl"]
+        Zb, dev = tpl.shape[0], tpl.device
+        zeros = torch.zeros(Zb, dtype=torch.int32, device=dev)
+        st = dr.RefineLoopState(
+            tpl=tpl, tlens=p["tlens"], tstarts=p["tstarts"],
+            tends=p["tends"], win_tpl=s.win_tpl, win_trans=s.win_trans,
+            wlens=s.wlens, alpha=s.fill.alpha, beta=s.fill.beta,
             a_prefix=s.fill.apre, b_suffix=s.fill.bsuf, baselines=ll_b,
             trans_f=s.trans_f, tpl_r=s.tpl_r, trans_r=s.trans_r,
             active=real & mated & ok_z,
-            done=torch.zeros(Z, dtype=torch.bool, device=dev),
-            converged=torch.zeros(Z, dtype=torch.bool, device=dev),
+            done=torch.zeros(Zb, dtype=torch.bool, device=dev),
+            converged=torch.zeros(Zb, dtype=torch.bool, device=dev),
             iterations=zeros, n_tested=zeros, n_applied=zeros,
-            allowed=torch.ones(Z, Jmax, dtype=torch.bool, device=dev),
-            history=torch.zeros(Z, dr.HISTORY, dtype=torch.int64,
+            allowed=torch.ones(Zb, self._Jmax, dtype=torch.bool,
+                               device=dev),
+            history=torch.zeros(Zb, dr.HISTORY, dtype=torch.int64,
                                 device=dev),
             hist_n=zeros)
+        return dr.Block(st, p["reads"], p["rlens"], p["strands"],
+                        p["tables"], real), stats
 
     # ------------------------------------------------------------- refinement
 
-    def _loop_state(self, skip=None) -> dr.RefineLoopState:
-        """A fresh loop start from the current device state: ZMWs in
-        `skip` and padding ZMWs start done, counters and filters reset."""
-        st = self._state
-        zeros = torch.zeros_like(st.iterations)
-        return dataclasses.replace(
-            st, done=self._skip_mask(skip),
-            converged=torch.zeros_like(st.converged), iterations=zeros,
-            n_tested=zeros, n_applied=zeros,
-            allowed=torch.ones_like(st.allowed),
-            history=torch.zeros_like(st.history), hist_n=zeros, it=0)
-
-    def _skip_mask(self, skip) -> torch.Tensor:
+    def _row_masks(self, skip) -> list[torch.Tensor]:
+        """Per ZMW row, the (Zb,) mask of ZMWs in `skip` and padding ZMWs,
+        on the row's lead."""
         m = np.zeros(self._Z, bool)
         m[self.n_zmws:] = True
         for z in (skip or ()):
             m[z] = True
-        return self._dev(m)
+        zb = self._Z // len(self._grid)
+        return [torch.as_tensor(m[i * zb: (i + 1) * zb], device=row[0].device)
+                for i, row in enumerate(self._grid)]
 
-    def _qv_sweep(self, st: dr.RefineLoopState, skip) -> np.ndarray:
-        """(Z, Jmax) int32 QVs of the state's templates (one fetch)."""
-        qv = dr.run_qv_ints(st, self._reads_dev, self._rlens_dev,
-                            self._strands_dev, self._tables_dev,
-                            self._real_dev, self._skip_mask(skip),
-                            min_fast_edge=MIN_FAST_EDGE_WLEN)
-        return device_fetch(qv)
+    def _loop_grid(self, skip=None) -> list[list[dr.Block]]:
+        """A fresh loop start from the current device state: ZMWs in
+        `skip` and padding ZMWs start done, counters and filters reset."""
+        def fresh(st, done):
+            zeros = torch.zeros_like(st.iterations)
+            return dataclasses.replace(
+                st, done=done.to(st.tpl.device),
+                converged=torch.zeros_like(st.converged), iterations=zeros,
+                n_tested=zeros, n_applied=zeros,
+                allowed=torch.ones_like(st.allowed),
+                history=torch.zeros_like(st.history), hist_n=zeros, it=0)
+
+        return [[dataclasses.replace(blk, st=fresh(blk.st, m)) for blk in row]
+                for row, m in zip(self._grid, self._row_masks(skip))]
+
+    def _qv_sweep(self, grid, skip) -> np.ndarray:
+        """(Z, Jmax) int32 QVs of the grid's templates (one fetch)."""
+        return device_fetch(dr.run_qv_ints(grid, self._row_masks(skip),
+                                           min_fast_edge=MIN_FAST_EDGE_WLEN))
 
     def refine(self, opts: RefineOptions | None = None,
                skip=None) -> list[RefineResult]:
@@ -518,22 +551,21 @@ class BatchPolisher:
 
     def _refine_impl(self, opts, skip) -> list[RefineResult]:
         opts = opts or RefineOptions()
-        st = self._loop_state(skip)
+        grid = self._loop_grid(skip)
         dr.run_refine_loop(
-            st, self._reads_dev, self._rlens_dev, self._strands_dev,
-            self._tables_dev, self._real_dev, width=self._W,
-            max_iterations=opts.max_iterations,
+            grid, width=self._W, max_iterations=opts.max_iterations,
             separation=opts.mutation_separation,
             neighborhood=opts.mutation_neighborhood,
             min_fast_edge=MIN_FAST_EDGE_WLEN)
-        qv = self._qv_sweep(st, skip)
+        qv = self._qv_sweep(grid, skip)
 
-        self._state = st                 # the loop's final device state
-        self._Jmax = st.tpl.shape[1]
-        h = device_fetch(torch.cat([
+        self._grid = grid                # the loop's final device state
+        self._Jmax = grid[0][0].st.tpl.shape[1]
+        h = device_fetch(torch.cat([torch.cat([
             torch.stack([st.tlens, st.converged.to(torch.int32),
                          st.iterations, st.n_tested, st.n_applied], 1),
-            st.tpl.to(torch.int32)], dim=1))
+            st.tpl.to(torch.int32)], dim=1).to(self.device)
+            for st in (row[0].st for row in grid)]))
         for z in range(self.n_zmws):
             self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
         self._qv_cache = (frozenset(skip or ()), qv)
@@ -562,7 +594,7 @@ class BatchPolisher:
         if self._qv_cache is not None and not live & self._qv_cache[0]:
             qv = self._qv_cache[1]
         else:
-            qv = self._qv_sweep(self._loop_state(skip), skip)
+            qv = self._qv_sweep(self._loop_grid(skip), skip)
         return [np.zeros(0, np.int32) if z in skip
                 else qv[z, : len(self.tpls[z])].astype(np.int32)
                 for z in range(self.n_zmws)]

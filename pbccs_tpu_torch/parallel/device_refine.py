@@ -10,6 +10,13 @@ reads a few flags per round (loop end, re-buckets) and fetches the results
 once at the end.  The JAX package's lax.while_loop / lax.cond become a
 Python loop over device tensors.
 
+The loop and the QV sweep run over a grid of Blocks, the port's
+counterpart of pbccs_tpu's shard_map over a ('zmw' x 'read') mesh
+(parallel.mesh): each block's read work runs on its device, each ZMW
+row's selection on its lead, and the read-axis sums are gathered on the
+lead in block order, in float64, so a score does not depend on how a
+ZMW's reads are split.  An unsharded batch is a 1 x 1 grid.
+
 Parity targets (held by the port's tests against pbccs_tpu):
   * slot_candidates: the host enumeration order (subs by base, ins by
     base, del per position); invalid slots are masked, never reordered;
@@ -22,8 +29,9 @@ Where the JAX device loop bails to its host loop, this loop handles the
 case itself, as the host loop does: edge slots in a read window too
 short for the window-frame program are scored by full refills of the
 mutated window (K1), and a template that outgrows its bucket re-buckets
-(batch._jmax_bucket) and the loop carries on at the larger Jmax.  The
-JAX loop's straggler early exit (a TPU compile-menu device) is not
+(batch._jmax_bucket) and the loop carries on at the larger Jmax -- under
+a mesh too, where pbccs_tpu's sharded loop bails.  The JAX loop's
+straggler early exit (a TPU compile-menu device) is not
 ported: per-ZMW results do not depend on it.  The flags and sizes the
 host reads each round are blocking device-to-host copies; they go
 through runtime.timing.device_fetch, which times them as device wait."""
@@ -333,8 +341,20 @@ STAGES = ("slot_grid.geometry", "slot_grid.k3", "slot_grid.edge",
 def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
                     real_rows, start, end, mtype, base, valid, *,
                     min_fast_edge: int) -> torch.Tensor:
-    """(Z, M) slot-grid totals, summed over active reads of
-    (mutated LL - baseline).
+    """(Z, M) float32 slot-grid totals, summed over active reads of
+    (mutated LL - baseline): slot_grid_partial rounded once."""
+    return slot_grid_partial(st, reads, rlens, strands, table, real_rows,
+                             start, end, mtype, base, valid,
+                             min_fast_edge=min_fast_edge).to(torch.float32)
+
+
+def slot_grid_partial(st: RefineLoopState, reads, rlens, strands, table,
+                      real_rows, start, end, mtype, base, valid, *,
+                      min_fast_edge: int) -> torch.Tensor:
+    """(Z, M) slot-grid sums over this block's active reads of (mutated
+    LL - baseline), accumulated in float64: a read-axis block's share of
+    the totals, which sum in float64 and round to float32 once however
+    the reads are split (_row_totals).
 
     Interior scores come from the K3 kernel over every (read, 64-position
     block) that holds a valid candidate; K3 builds its read windows and
@@ -414,7 +434,7 @@ def score_slot_grid(st: RefineLoopState, reads, rlens, strands, table,
                                           st.tstarts, st.tends, end, W)
     with record_function(STAGES[3]):
         return torch.where(score_mask, mapped - st.baselines[:, :, None],
-                           0.0).sum(1)
+                           0.0).sum(1, dtype=torch.float64)
 
 
 def qv_from_slot_grid(totals: torch.Tensor, valid: torch.Tensor
@@ -436,17 +456,91 @@ def qv_from_slot_grid(totals: torch.Tensor, valid: torch.Tensor
                        float(QV_SATURATED)).to(torch.int32)
 
 
-def run_qv_ints(st: RefineLoopState, reads, rlens, strands, table,
-                real_rows, skip_mask, *, min_fast_edge: int) -> torch.Tensor:
-    """The QV sweep: score the full slot grid of every non-skipped ZMW
-    against its current template and reduce to (Z, Jmax) int32 QVs."""
-    jmax = st.tpl.shape[1]
-    start, end, mtype, base = slot_grid(jmax, reads.device)
-    valid = slot_candidates(st.tpl, st.tlens) & ~skip_mask[:, None]
-    totals = score_slot_grid(st, reads, rlens, strands, table, real_rows,
-                             start, end, mtype, base, valid,
-                             min_fast_edge=min_fast_edge)
-    return qv_from_slot_grid(totals, valid)
+# --------------------------------------------------------------------------
+# the grid: per-block read work, per-row selection, the reductions
+# --------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class Block:
+    """One cell of the ('zmw' x 'read') grid: a (Zb, Rb) block of the
+    batch's reads on one device, with its loop state.  A ZMW row's
+    ZMW-level fields (done, counters, the nearby filter, the hash ring)
+    are those of its first block, the row's lead; the row's other blocks
+    hold copies of its templates and their own reads' windows and fills.
+    An unsharded batch is a 1 x 1 grid."""
+
+    st: RefineLoopState
+    reads: torch.Tensor        # (Zb, Rb, Imax) int8
+    rlens: torch.Tensor        # (Zb, Rb)
+    strands: torch.Tensor      # (Zb, Rb)
+    table: torch.Tensor        # (Zb, 8, 4) per-ZMW SNR transition tables
+    real_rows: torch.Tensor    # (Zb, Rb) bool
+
+    @property
+    def device(self) -> torch.device:
+        return self.reads.device
+
+
+def _grid_devices(grid) -> list:
+    out: list = []
+    for row in grid:
+        for blk in row:
+            if blk.device not in out:
+                out.append(blk.device)
+    return out
+
+
+def _fold(parts, device) -> torch.Tensor:
+    """Sum of `parts` on `device`, added in list (block) order."""
+    acc = parts[0].to(device)
+    for p in parts[1:]:
+        acc = acc + p.to(device)
+    return acc
+
+
+def _row_totals(row, valid, geos, *, min_fast_edge: int) -> torch.Tensor:
+    """(Zb, M) float32 slot totals of one ZMW row on its lead: each
+    block's float64 share (slot_grid_partial, on its device) summed in
+    block order on the lead and rounded once -- the read-axis reduction."""
+    lead = row[0].device
+    parts = []
+    for blk in row:
+        d = blk.device
+        parts.append(slot_grid_partial(
+            blk.st, blk.reads, blk.rlens, blk.strands, blk.table,
+            blk.real_rows, *geos[d], valid.to(d),
+            min_fast_edge=min_fast_edge))
+    return _fold(parts, lead).to(torch.float32)
+
+
+def _row_eps(row) -> torch.Tensor:
+    """(Zb,) favorability floor of one ZMW row (refine.
+    favorability_threshold) from the sum of |baseline| over its active
+    reads, accumulated in float64 over the row's blocks and rounded
+    once."""
+    from pbccs_tpu_torch.models.arrow.refine import favorability_threshold
+
+    parts = [torch.where(b.st.active, b.st.baselines.abs(), 0.0)
+             .sum(1, dtype=torch.float64) for b in row]
+    return favorability_threshold(_fold(parts, row[0].device)
+                                  .to(torch.float32))
+
+
+def run_qv_ints(grid, skip_masks, *, min_fast_edge: int) -> torch.Tensor:
+    """The QV sweep (pbccs_tpu's run_qv_ints and run_qv_ints_sharded):
+    score the full slot grid of every ZMW not in its row's (Zb,) skip
+    mask against its current template and reduce to (Z, Jmax) int32
+    QVs, the rows stacked on the first block's device."""
+    jmax = grid[0][0].st.tpl.shape[1]
+    geos = {d: slot_grid(jmax, d) for d in _grid_devices(grid)}
+    out = []
+    for row, skip in zip(grid, skip_masks):
+        st = row[0].st
+        valid = slot_candidates(st.tpl, st.tlens) & ~skip[:, None]
+        totals = _row_totals(row, valid, geos, min_fast_edge=min_fast_edge)
+        out.append(qv_from_slot_grid(totals, valid).to(grid[0][0].device))
+    return torch.cat(out)
 
 
 # --------------------------------------------------------------------------
@@ -492,12 +586,115 @@ def _splice_len(tlens, taken, mtype) -> torch.Tensor:
     return tlens + (ins - dels).to(tlens.dtype)
 
 
-def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
-                    real_rows, *, width: int, max_iterations: int,
+@dataclasses.dataclass
+class _Pick:
+    """One ZMW row's selection of a round, on its lead."""
+
+    taken: torch.Tensor        # (Zb, M) mutations to apply
+    favorable: torch.Tensor    # (Zb, M) the next round's filter centres
+    fav_any: torch.Tensor      # (Zb,)
+    pushing: torch.Tensor      # (Zb,) ZMWs that apply this round
+    new_len: torch.Tensor      # (Zb,) template lengths after applying
+
+
+def _select(row, geos, *, separation: int, min_fast_edge: int) -> _Pick:
+    """Steps 1-4 of a round for one ZMW row: candidates, scores (the
+    read-axis reduction), favorability, counters, greedy selection with
+    the cycle trim, and the hash-ring push, on the row's lead."""
+    st = row[0].st
+    dev = row[0].device
+    jmax = st.tpl.shape[1]
+    start, end, mtype, base = geos[dev]
+    H = st.history.shape[1]
+    zidx = torch.arange(st.tpl.shape[0], device=dev)
+
+    # 1. candidates
+    valid = slot_candidates(st.tpl, st.tlens, st.allowed) & ~st.done[:, None]
+
+    # 2. scores
+    totals = _row_totals(row, valid, geos, min_fast_edge=min_fast_edge)
+    scores = torch.where(valid, totals, -float("inf"))
+    favorable = valid & (scores > _row_eps(row)[:, None])
+    fav_any = favorable.any(1)
+
+    st.iterations = st.iterations + (~st.done).to(torch.int32)
+    st.n_tested = st.n_tested + torch.where(
+        st.done, 0, valid.sum(1, dtype=torch.int32))
+    newly_converged = ~st.done & ~fav_any
+    st.converged = st.converged | newly_converged
+    done_now = st.done | newly_converged
+
+    # 3. greedy selection + cycle trim (the candidate template is
+    # spliced wide enough to hold every insertion, so its hash is
+    # exact even when it outgrows the bucket)
+    taken = greedy_well_separated_posmajor(
+        scores, favorable & ~done_now[:, None], separation, jmax)
+    jw = max(jmax, int(device_fetch(
+        _splice_len(st.tlens, taken, mtype).max())))
+    if jw > jmax:
+        w_start, _, w_mtype, w_base = slot_grid(jw, dev)
+        nxt_tpl, nxt_tlen, _ = splice_templates(
+            _pad_positions(st.tpl, jmax, jw, 4), st.tlens, w_start,
+            w_mtype, w_base, _pad_positions(taken, jmax, jw, False))
+    else:
+        nxt_tpl, nxt_tlen, _ = splice_templates(st.tpl, st.tlens, start,
+                                                mtype, base, taken)
+    nxt_hash = template_hash(nxt_tpl, nxt_tlen)
+    seen = ((st.history == nxt_hash[:, None])
+            & (torch.arange(H, device=dev)[None, :]
+               < st.hist_n[:, None])).any(1)
+    trim = seen & (taken.sum(1) > 1)
+    top1 = torch.argmax(torch.where(taken, scores, -float("inf")), 1)
+    only_top = torch.zeros_like(taken)
+    only_top[zidx, top1] = True
+    taken = torch.where(trim[:, None], only_top & taken, taken)
+
+    # 4. history push (current template, pre-apply) where a round ran
+    pushing = ~st.done & fav_any
+    cur_hash = template_hash(st.tpl, st.tlens)
+    slot = (st.hist_n % H).long()
+    pushed = st.history.clone()
+    pushed[zidx, slot] = cur_hash
+    st.history = torch.where(pushing[:, None], pushed, st.history)
+    st.hist_n = st.hist_n + pushing.to(torch.int32)
+    st.done = done_now
+    new_len = torch.where(pushing, _splice_len(st.tlens, taken, mtype),
+                          st.tlens)
+    return _Pick(taken, favorable, fav_any, pushing, new_len)
+
+
+def _apply(row, pick: _Pick, geos) -> None:
+    """Step 5 for one ZMW row: splice the lead's templates, remap every
+    block's read windows through the old->new position map, and copy the
+    new templates to the row's other blocks."""
+    st = row[0].st
+    start, _, mtype, base = geos[row[0].device]
+    new_tpl, new_tlen, mtp = splice_templates(st.tpl, st.tlens, start,
+                                              mtype, base, pick.taken)
+    for blk in row:
+        b, d = blk.st, blk.device
+        m, push = mtp.to(d), pick.pushing.to(d)[:, None]
+        old_tlen = st.tlens.long()[:, None].to(d)
+        ts_new = m.gather(1, b.tstarts.long().clamp(min=0).minimum(old_tlen))
+        te_new = m.gather(1, b.tends.long().clamp(min=0).minimum(old_tlen))
+        b.tstarts = torch.where(push, ts_new, b.tstarts)
+        b.tends = torch.where(push, te_new, b.tends)
+    st.tpl = torch.where(pick.pushing[:, None], new_tpl, st.tpl)
+    st.tlens = torch.where(pick.pushing, new_tlen, st.tlens)
+    st.n_applied = st.n_applied + torch.where(
+        pick.pushing, pick.taken.sum(1, dtype=torch.int32), 0)
+    for blk in row[1:]:
+        blk.st.tpl = st.tpl.to(blk.device)
+        blk.st.tlens = st.tlens.to(blk.device)
+
+
+def run_refine_loop(grid, *, width: int, max_iterations: int,
                     separation: int, neighborhood: int,
-                    min_fast_edge: int) -> RefineLoopState:
+                    min_fast_edge: int) -> None:
     """Up to max_iterations rounds of enumerate -> score -> select ->
-    splice -> rebuild over the batch, updating `st` in place.
+    splice -> rebuild over a grid of Blocks (rows of blocks), updating
+    each block's state in place: pbccs_tpu's run_refine_loop and, for a
+    grid of more than one cell, its run_refine_loop_sharded.
 
     Semantics mirror the reference AbstractRefineConsensus
     (Consensus-inl.hpp:160-245) as the JAX package's loops do:
@@ -509,102 +706,64 @@ def run_refine_loop(st: RefineLoopState, reads, rlens, strands, table,
     A round whose applied templates no longer fit the bucket (length + 2
     > Jmax) re-buckets to batch._jmax_bucket of the longest template and
     rebuilds the state there (the JAX host loop's apply_mutations); the
-    final state may have a larger Jmax than the initial one."""
+    final state may have a larger Jmax than the initial one.
+
+    The rows run in lockstep, one round of every row per pass of this
+    Python loop.  Each block's read work (K3 scoring, edge programs,
+    tiny-window refills, K1 rebuilds) runs on its device; each row's
+    selection and splice on its lead.  What pbccs_tpu's sharded loop
+    reduces with collectives is summed on a lead in block order: the slot
+    totals and the |baseline| sum over a row's blocks (float64, rounded
+    once), and over the whole grid on the first block's device the live
+    count, the longest template (every row re-buckets together, as one
+    batch does) and whether any ZMW applied a mutation (every block
+    rebuilds, as one batch does).  The straggler early exit is not
+    ported: per-ZMW results do not depend on it."""
     from pbccs_tpu_torch.parallel import batch as batchmod
 
-    Z, R = reads.shape[:2]
-    jmax = st.tpl.shape[1]
-    dev = reads.device
-    start, end, mtype, base = slot_grid(jmax, dev)
-    H = st.history.shape[1]
-    zidx = torch.arange(Z, device=dev)
-    while st.it < max_iterations and not bool(device_fetch(st.done.all())):
-        # 1. candidates
-        valid = slot_candidates(st.tpl, st.tlens, st.allowed) \
-            & ~st.done[:, None]
-
-        # 2. scores
-        totals = score_slot_grid(st, reads, rlens, strands, table,
-                                 real_rows, start, end, mtype, base, valid,
-                                 min_fast_edge=min_fast_edge)
-        scores = torch.where(valid, totals, -float("inf"))
-        eps_z = batchmod._favorability_eps(st.baselines, st.active)
-        favorable = valid & (scores > eps_z[:, None])
-        fav_any = favorable.any(1)
-
-        st.iterations = st.iterations + (~st.done).to(torch.int32)
-        st.n_tested = st.n_tested + torch.where(
-            st.done, 0, valid.sum(1, dtype=torch.int32))
-        newly_converged = ~st.done & ~fav_any
-        st.converged = st.converged | newly_converged
-        done_now = st.done | newly_converged
-
-        # 3. greedy selection + cycle trim (the candidate template is
-        # spliced wide enough to hold every insertion, so its hash is
-        # exact even when it outgrows the bucket)
-        taken = greedy_well_separated_posmajor(
-            scores, favorable & ~done_now[:, None], separation, jmax)
-        jw = max(jmax, int(device_fetch(
-            _splice_len(st.tlens, taken, mtype).max())))
-        if jw > jmax:
-            w_start, _, w_mtype, w_base = slot_grid(jw, dev)
-            nxt_tpl, nxt_tlen, _ = splice_templates(
-                _pad_positions(st.tpl, jmax, jw, 4), st.tlens, w_start,
-                w_mtype, w_base, _pad_positions(taken, jmax, jw, False))
-        else:
-            nxt_tpl, nxt_tlen, _ = splice_templates(st.tpl, st.tlens, start,
-                                                    mtype, base, taken)
-        nxt_hash = template_hash(nxt_tpl, nxt_tlen)
-        seen = ((st.history == nxt_hash[:, None])
-                & (torch.arange(H, device=dev)[None, :]
-                   < st.hist_n[:, None])).any(1)
-        trim = seen & (taken.sum(1) > 1)
-        top1 = torch.argmax(torch.where(taken, scores, -float("inf")), 1)
-        only_top = torch.zeros_like(taken)
-        only_top[zidx, top1] = True
-        taken = torch.where(trim[:, None], only_top & taken, taken)
-
-        # 4. history push (current template, pre-apply) where a round ran
-        pushing = ~st.done & fav_any
-        cur_hash = template_hash(st.tpl, st.tlens)
-        slot = (st.hist_n % H).long()
-        pushed = st.history.clone()
-        pushed[zidx, slot] = cur_hash
-        st.history = torch.where(pushing[:, None], pushed, st.history)
-        st.hist_n = st.hist_n + pushing.to(torch.int32)
+    leads = [row[0] for row in grid]
+    dev0 = grid[0][0].device
+    jmax = leads[0].st.tpl.shape[1]
+    devs = _grid_devices(grid)
+    geos = {d: slot_grid(jmax, d) for d in devs}
+    it = leads[0].st.it
+    while it < max_iterations and int(device_fetch(_fold(
+            [(~b.st.done).sum() for b in leads], dev0))) > 0:
+        picks = [_select(row, geos, separation=separation,
+                         min_fast_edge=min_fast_edge) for row in grid]
 
         # 5. re-bucket when an applied template outgrows Jmax, then apply
-        new_len = torch.where(pushing, _splice_len(st.tlens, taken, mtype),
-                              st.tlens)
-        max_len = int(device_fetch(new_len.max()))
+        max_len = int(device_fetch(torch.stack(
+            [p.new_len.max().to(dev0) for p in picks]).max()))
         if max_len + 2 > jmax:
             jnew = batchmod._jmax_bucket(max_len)
-            st.tpl = _pad_positions(st.tpl, jmax, jnew, 4)
-            st.allowed = _pad_positions(st.allowed, jmax, jnew, True)
-            taken = _pad_positions(taken, jmax, jnew, False)
-            favorable = _pad_positions(favorable, jmax, jnew, False)
+            for lead, p in zip(leads, picks):
+                lead.st.tpl = _pad_positions(lead.st.tpl, jmax, jnew, 4)
+                lead.st.allowed = _pad_positions(lead.st.allowed, jmax, jnew,
+                                                 True)
+                p.taken = _pad_positions(p.taken, jmax, jnew, False)
+                p.favorable = _pad_positions(p.favorable, jmax, jnew, False)
             jmax = jnew
-            start, end, mtype, base = slot_grid(jmax, dev)
-        new_tpl, new_tlen, mtp = splice_templates(st.tpl, st.tlens, start,
-                                                  mtype, base, taken)
-        old_tlen = st.tlens.long()[:, None]
-        ts_new = mtp.gather(1, st.tstarts.long().clamp(min=0).minimum(old_tlen))
-        te_new = mtp.gather(1, st.tends.long().clamp(min=0).minimum(old_tlen))
-        st.tpl = torch.where(pushing[:, None], new_tpl, st.tpl)
-        st.tlens = torch.where(pushing, new_tlen, st.tlens)
-        st.n_applied = st.n_applied + torch.where(
-            pushing, taken.sum(1, dtype=torch.int32), 0)
-        st.tstarts = torch.where(pushing[:, None], ts_new, st.tstarts)
-        st.tends = torch.where(pushing[:, None], te_new, st.tends)
-        st.done = done_now
+            geos = {d: slot_grid(jmax, d) for d in devs}
+        for row, p in zip(grid, picks):
+            _apply(row, p, geos)
 
         # 6. rebuild fills (skipped when no ZMW applied anything)
-        if bool(device_fetch(pushing.any())):
-            rebuild(st, reads, rlens, strands, table, width=width)
+        if bool(device_fetch(torch.stack(
+                [p.pushing.any().to(dev0) for p in picks]).any())):
+            for row in grid:
+                for blk in row:
+                    rebuild(blk.st, blk.reads, blk.rlens, blk.strands,
+                            blk.table, width=width)
 
         # 7. next round's nearby filter from this round's favorables
-        allowed = nearby_allowed(start[None, :], end[None, :], favorable,
-                                 neighborhood, jmax)
-        st.allowed = torch.where(fav_any[:, None], allowed, st.allowed)
-        st.it += 1
-    return st
+        for lead, p in zip(leads, picks):
+            start, end = geos[lead.device][:2]
+            allowed = nearby_allowed(start[None, :], end[None, :],
+                                     p.favorable, neighborhood, jmax)
+            lead.st.allowed = torch.where(p.fav_any[:, None], allowed,
+                                          lead.st.allowed)
+        it += 1
+        for row in grid:
+            for blk in row:
+                blk.st.it = it

@@ -233,15 +233,16 @@ def test_tiny_window_matches_jax_host_loop():
     from pbccs_tpu.models.arrow import mutations as jmut
 
     ref, mine = _fallback_pair(_tiny_window_task)
-    st = mine._state
+    blk = mine._grid[0][0]
+    st = blk.st
     jmax = st.tpl.shape[1]
     valid = tdr.slot_candidates(st.tpl, st.tlens)
     grid = tdr.slot_grid(jmax, "cpu")
-    rows = (st.tstarts < 6) & (st.tends == 6) & mine._real_dev
+    rows = (st.tstarts < 6) & (st.tends == 6) & blk.real_rows
     assert bool(rows.any()) and bool(st.active[rows].all())
-    got = tdr.score_slot_grid(st, mine._reads_dev, mine._rlens_dev,
-                              mine._strands_dev, mine._tables_dev,
-                              mine._real_dev, *grid, valid, min_fast_edge=8)
+    got = tdr.score_slot_grid(st, blk.reads, blk.rlens, blk.strands,
+                              blk.table, blk.real_rows, *grid, valid,
+                              min_fast_edge=8)
     want = ref.score_mutations([jmut.enumerate_unique(ref.tpls[0])])[0]
     np.testing.assert_allclose(got[0][valid[0]].numpy(), want, atol=2e-3)
     _assert_same_refine(ref, mine, {"max_iterations": 10})

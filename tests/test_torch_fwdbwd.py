@@ -321,3 +321,44 @@ def test_log_scale_sums_ignore_column_padding(pad):
         assert torch.equal(a, b)
     want = np.cumsum(ls.numpy().astype(np.float64), 1).astype(np.float32)
     np.testing.assert_array_equal(scale_prefix(ls)[:, 1:].numpy(), want)
+
+
+@pytest.mark.parametrize("n_read", [2, 4, 8])
+def test_read_axis_sums_ignore_the_read_split(n_read):
+    """The read-axis sums of the refinement loop -- a ZMW row's slot
+    totals and the favorability floor's |baseline| sum -- accumulate in
+    float64 over the read blocks and round once: the same bits whether a
+    ZMW's 8 reads sit in one block or in `n_read`, and (8 blocks of one
+    read) each total is numpy's float64 sum of the reads' shares rounded
+    to float32."""
+    from pbccs_tpu_torch.parallel import BatchPolisher, make_zmw_mesh
+    from pbccs_tpu_torch.parallel import device_refine as tdr
+    from pbccs_tpu_torch.parallel.batch import ZmwTask
+
+    rng = np.random.default_rng(41)
+    tasks = []
+    for z in range(2):
+        tpl, reads, strands, snr = simulate_zmw(rng, 70, 8)
+        tasks.append(ZmwTask(f"split/{z}", tpl, snr, reads, list(strands),
+                             [0] * 8, [len(tpl)] * 8))
+    cpu = torch.device("cpu")
+
+    def row_sums(nr):
+        pol = BatchPolisher(tasks, mesh=make_zmw_mesh(1, nr, ["cpu"] * nr))
+        row = pol._grid[0]
+        st = row[0].st
+        geos = {cpu: tdr.slot_grid(st.tpl.shape[1], cpu)}
+        valid = tdr.slot_candidates(st.tpl, st.tlens)
+        return (row, geos, valid,
+                tdr._row_totals(row, valid, geos, min_fast_edge=8),
+                tdr._row_eps(row))
+
+    *_, tot1, eps1 = row_sums(1)
+    row, geos, valid, tot, eps = row_sums(n_read)
+    assert torch.equal(tot, tot1) and torch.equal(eps, eps1)
+    shares = [tdr.slot_grid_partial(b.st, b.reads, b.rlens, b.strands,
+                                    b.table, b.real_rows, *geos[cpu], valid,
+                                    min_fast_edge=8).numpy() for b in row]
+    np.testing.assert_array_equal(
+        tot.numpy(), np.sum(shares, axis=0, dtype=np.float64)
+        .astype(np.float32))

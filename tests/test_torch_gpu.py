@@ -751,3 +751,54 @@ def test_batch_polisher_refuses_an_unbuilt_width_at_construction(cuda):
     with pytest.raises(ValueError, match="band width 80"):
         BatchPolisher([task], config=cfg, device=cuda)
     assert fc.arrow_fill.launches == fills
+
+
+def _mesh_polish(tasks, **kw):
+    """Refine results, templates and QVs of one BatchPolisher, as bytes."""
+    from pbccs_tpu_torch.parallel import BatchPolisher
+
+    pol = BatchPolisher(tasks, **kw)
+    res = pol.refine()
+    return ([vars(r) for r in res], [t.tobytes() for t in pol.tpls],
+            [q.tobytes() for q in pol.consensus_qvs()])
+
+
+def _mesh_tasks():
+    """Eight 400 bp, 6-pass ZMWs whose drafts carry one substitution."""
+    from pbccs_tpu_torch.parallel.batch import ZmwTask
+
+    rng = np.random.default_rng(47)
+    tasks = []
+    for z in range(8):
+        tpl, reads, strands, snr = simulate_zmw(rng, 400, 6)
+        draft = tpl.copy()
+        draft[100] = (draft[100] + 1) % 4
+        tasks.append(ZmwTask(f"mesh/{z}", draft, snr, reads, list(strands),
+                             [0] * len(reads), [len(draft)] * len(reads)))
+    return tasks
+
+
+def test_mesh_on_one_card_matches_unsharded(cuda):
+    """A 2 x 2 grid of cuda:0: every block's K1 and K3 launches and the
+    read-axis sums on one card give the unsharded polisher's templates,
+    refine results and QVs, byte for byte."""
+    from pbccs_tpu_torch.parallel import make_zmw_mesh
+
+    tasks = _mesh_tasks()
+    want = _mesh_polish(tasks, device="cuda:0")
+    assert _mesh_polish(tasks, mesh=make_zmw_mesh(2, 2, ["cuda:0"] * 4)) \
+        == want
+
+
+def test_mesh_across_cards_matches_unsharded(cuda):
+    """The ZMW rows, then the read blocks, on distinct cards: the
+    unsharded polisher's templates, refine results and QVs."""
+    from pbccs_tpu_torch.parallel import make_zmw_mesh
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two CUDA devices")
+    tasks = _mesh_tasks()
+    want = _mesh_polish(tasks, device="cuda:0")
+    for mesh in (make_zmw_mesh(n, 1), make_zmw_mesh(1, n)):
+        assert _mesh_polish(tasks, mesh=mesh) == want

@@ -195,8 +195,9 @@ def test_port_imports_without_jax():
     """pbccs_tpu_torch (every module, the Quiver path's, the CLI's, its
     resilience and observability tiers', the device fleet's, the tuner's,
     the serving tier's with its router, supervisor and console, the
-    tuner's referee and the trace merge named) and chip_smoke.py import
-    with jax and pbccs_tpu poisoned."""
+    tuner's referee and the trace merge named, the sharded polish's
+    parallel.mesh among them) and chip_smoke.py import with jax and
+    pbccs_tpu poisoned."""
     code = (
         "import sys\n"
         "for name in ('jax', 'jaxlib', 'pbccs_tpu'):\n"
@@ -232,6 +233,9 @@ def test_port_imports_without_jax():
         "          'serve.client', 'obs.httpexp', 'serve.router',\n"
         "          'serve.supervisor', 'obs.console')}\n"
         "assert serve <= names, serve - names\n"
+        "par = {'pbccs_tpu_torch.parallel.' + n for n in\n"
+        "       ('batch', 'device_refine', 'mesh')}\n"
+        "assert par <= names, par - names\n"
         "names.add('pbccs_tpu_torch.tools.perf_gate')\n"
         "names.add('pbccs_tpu_torch.tools.trace_merge')\n"
         "for name in sorted(names):\n"
