@@ -219,6 +219,19 @@ script exits non-zero):
      count printed), refine results equal, K1 and K3 launched (in all
      and per block), every block's tensors on its cell's device, wall
      and peak device memory beside the unsharded run's.
+ 18. cache: `python -m pbccs_tpu_torch.cli warmup --compileCache D
+     --bucket CACHE_BUCKET` into a fresh temp directory D: its build
+     seconds and one compile and one miss per kernel library, the
+     libraries in D and the default build cache untouched; the same
+     command again: no compile, a hit per library, the same library
+     names.  Then `... serve --compileCache D --port 0` (phase 15's
+     child flags) answering phase 15's child ZMWs: replies byte-equal to
+     that child's, its metrics verb showing no compile and no miss, exit
+     0 on SIGTERM.  Then CACHE_ZMWS of phase 4's drafted ZMWs through
+     polish_prepared_batch on the card with PBCCS_GUIDED=1 and unset:
+     K1's launches of each run (more with the guided refills), the same
+     tallies.  Then `python -m pbccs_tpu_torch.analysis.cli` on this
+     tree: exit 0, its seconds.
 Then each phase's seconds as one JSON line, the card's name and power
 limit, the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -2290,6 +2303,8 @@ def phase_serve(cli_out, fleet_out) -> dict:
             or child["ledger_last"] != "serve_snapshot" \
             or child["band_w_80"] != {"exit_code": 2, "names_widths": True}:
         raise AssertionError(f"serve: the `ccs serve` process: {child}")
+    # for phase 18: the child's ZMWs and replies (not printed)
+    out["child_replies"] = (sub, got["replies"])
     return out
 
 
@@ -3126,6 +3141,195 @@ def phase_mesh(drafted, card: str = "cuda:0") -> dict:
     return out
 
 
+#: phase 18: the bucket its `ccs warmup` runs names, the ZMWs its guided
+#: run polishes, and the bound of each child it starts
+CACHE_BUCKET = "4x5x2000"
+CACHE_ZMWS = 4
+CACHE_CHILD_S = 300.0
+
+
+def _ccs_json(argv, env=None) -> tuple[int, dict | None, float]:
+    """`python -m pbccs_tpu_torch.cli ARGV` from the checkout: (exit code,
+    its last stdout line as JSON or None, seconds)."""
+    import os
+
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-m", "pbccs_tpu_torch.cli", *argv],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        capture_output=True, text=True, timeout=CACHE_CHILD_S)
+    lines = proc.stdout.strip().splitlines()
+    try:
+        last = json.loads(lines[-1]) if lines else None
+    except ValueError:
+        last = None
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr)
+    return proc.returncode, last, time.monotonic() - t0
+
+
+def _listing(d: str) -> dict:
+    import os
+
+    return ({f: os.stat(os.path.join(d, f)).st_mtime_ns
+             for f in os.listdir(d)} if os.path.isdir(d) else {})
+
+
+def _metric(text: str, name: str, **labels) -> float | None:
+    """One sample of a Prometheus text exposition, or None."""
+    want = name + ("{" + ",".join(f'{k}="{v}"' for k, v in labels.items())
+                   + "}" if labels else "")
+    for line in text.splitlines():
+        if line.split(" ")[0] == want:
+            return float(line.split()[-1])
+    return None
+
+
+def phase_cache(drafted, serve_out) -> dict:
+    """18. cache: `ccs warmup --compileCache D` into a fresh directory,
+    then again, a `ccs serve --compileCache D` child answering phase
+    15's child ZMWs, PBCCS_GUIDED on phase 4's drafted ZMWs, and `ccs
+    analyze` on this tree (see the module docstring)."""
+    import os
+    import shutil
+    import tempfile
+
+    from pbccs_tpu_torch.ops import cuda_lib
+    from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
+    from pbccs_tpu_torch.pipeline import Failure, polish_prepared_batch
+    from pbccs_tpu_torch.runtime import cache
+    from pbccs_tpu_torch.serve.client import CcsClient, wait_for_ready
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"phase": "cache", "card": card_line()}
+    failed = []
+    d = tempfile.mkdtemp(prefix="ccs-kernels-")
+    try:
+        # (a) a cold build into D, nothing written to the default cache
+        default = cache.default_cache_dir()
+        before = _listing(default)
+        warm = ["warmup", "--compileCache", d, "--bucket", CACHE_BUCKET,
+                "--logLevel", "WARN"]
+        runs = []
+        for _ in range(2):
+            rc, rep, wall = _ccs_json(warm)
+            k = (rep or {}).get("kernels", {})
+            runs.append({"exit_code": rc, "wall_s": wall,
+                         "build_s": k.get("seconds"),
+                         "compiles": k.get("compiles"),
+                         "hits": k.get("cache_hits"),
+                         "misses": k.get("cache_misses"),
+                         "compile_cache": (rep or {}).get("compile_cache"),
+                         "libraries": k.get("libraries", [])})
+        n = len(cuda_lib.KERNELS)
+        in_d = sorted(os.listdir(d))
+        out["warmup_cold"], out["warmup_warm"] = (
+            {k: v for k, v in r.items() if k != "libraries"} for r in runs)
+        out["libraries_in_dir"] = in_d
+        out["default_cache_unchanged"] = _listing(default) == before
+        cold, warm_run = runs
+        if (cold["exit_code"], cold["compiles"], cold["misses"],
+                cold["hits"], cold["compile_cache"]) != (0, n, n, 0, d) \
+                or in_d != sorted(os.path.basename(p)
+                                  for p in cold["libraries"]) \
+                or not out["default_cache_unchanged"]:
+            failed.append("(a) the cold warmup")
+        if (warm_run["exit_code"], warm_run["compiles"], warm_run["misses"],
+                warm_run["hits"]) != (0, 0, 0, n) \
+                or warm_run["libraries"] != cold["libraries"]:
+            failed.append("(b) the second warmup")
+
+        # (c) a `ccs serve` child loading its kernels from D: phase 15's
+        # child ZMWs, byte-equal replies, no compile
+        sub, want = serve_out["child_replies"]
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pbccs_tpu_torch.cli", "serve",
+             "--port", "0", "--compileCache", d, "--maxBatch",
+             str(SERVE_CHILD_ZMWS), "--maxWaitMs", str(SERVE_WAIT_MS),
+             "--prepWorkers", "1", "--logLevel", "WARN"],
+            cwd=here, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        child = {}
+        try:
+            ready = wait_for_ready(proc, SERVE_READY_S, [])
+            if ready is None:
+                raise AssertionError("ccs serve --compileCache never "
+                                     "became ready")
+            host, port = ready["CCS-SERVE-READY"]
+            with CcsClient(host, port, timeout=600.0) as cli:
+                got = _serve_pass(cli, sub, trace=False, engine=False)
+                text = cli.metrics()
+            child["byte_equal"] = sum(
+                _wire_record(got["replies"][c.id]) == _wire_record(want[c.id])
+                for c in sub)
+            child["compiles"] = _metric(text, "ccs_compiles_total")
+            child["hits"] = _metric(text, "ccs_compile_cache_events_total",
+                                    kind="hit")
+            child["misses"] = _metric(text,
+                                      "ccs_compile_cache_events_total",
+                                      kind="miss")
+            proc.send_signal(15)
+            child["exit_code"] = proc.wait(timeout=120.0)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30.0)
+        out["serve"] = child
+        if child.get("byte_equal") != len(sub) \
+                or child.get("compiles") != 0 or child.get("misses") != 0 \
+                or not child.get("hits") or child.get("exit_code") != 0:
+            failed.append("(c) the serve child")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    # (d) PBCCS_GUIDED=1 against no guided pass (2 kb: the schedule's 0)
+    preps = drafted[:CACHE_ZMWS]
+    guided = {}
+    for tag, env in (("guided_1", "1"), ("unset", None)):
+        prev = os.environ.pop("PBCCS_GUIDED", None)
+        if env is not None:
+            os.environ["PBCCS_GUIDED"] = env
+        fc.arrow_fill.launches = 0
+        try:
+            res = polish_prepared_batch(preps, device="cuda")
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("PBCCS_GUIDED", None)
+            if prev is not None:
+                os.environ["PBCCS_GUIDED"] = prev
+        tally = {f.value: sum(r[0] is f for r in res) for f in Failure}
+        guided[tag] = {"k1_launches": fc.arrow_fill.launches,
+                       "tally": {k: v for k, v in tally.items() if v},
+                       "sequences": [r[1].sequence if r[1] else None
+                                     for r in res]}
+    g, u = guided["guided_1"], guided["unset"]
+    out["guided"] = {
+        "zmws": len(preps),
+        "k1_launches_guided_1": g["k1_launches"],
+        "k1_launches_unset": u["k1_launches"],
+        "tally_guided_1": g["tally"], "tally_unset": u["tally"],
+        "same_sequences": sum(a == b for a, b in zip(g["sequences"],
+                                                     u["sequences"]))}
+    if g["k1_launches"] <= u["k1_launches"] or g["tally"] != u["tally"]:
+        failed.append("(d) PBCCS_GUIDED")
+
+    # (e) the port's static analysis of this tree, without torch
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m",
+                           "pbccs_tpu_torch.analysis.cli"], cwd=here,
+                          capture_output=True, text=True, timeout=300)
+    out["analyze"] = {"exit_code": proc.returncode,
+                      "seconds": time.monotonic() - t0,
+                      "summary": proc.stderr.strip().splitlines()[-1:]}
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], file=sys.stderr)
+        failed.append("(e) ccs analyze")
+    emit(out)
+    if failed:
+        raise AssertionError(f"cache: {failed}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3176,6 +3380,7 @@ def main() -> int:
     timed("router", phase_router, cli_out, serve_out,
           {f"{CLI_MOVIE}/{hole}": t for hole, t in enumerate(truths)})
     timed("mesh", phase_mesh, drafted)
+    timed("cache", phase_cache, drafted, serve_out)
     emit({"phase_seconds": seconds})
 
     # K1's launch on the main path: alpha and beta together at the

@@ -8,8 +8,15 @@ plain numpy there are kept here as copies.  Its three CUDA kernels (the
 banded Arrow fill, the Quiver fill and the dense 9-slot mutation scorer)
 live in csrc/ and are built with nvcc at first use on the card."""
 
-from pbccs_tpu_torch.device import resolve_device
-
 __version__ = "0.1.0"
-
 __all__ = ["resolve_device", "__version__"]
+
+
+def __getattr__(name: str):
+    # resolve_device imports torch on first use, so the package imports
+    # without it (`python -m pbccs_tpu_torch.analysis.cli` needs no torch)
+    if name == "resolve_device":
+        from pbccs_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -22,19 +22,23 @@ fault injection (--faults, --faultSeed), the dispatch watchdog
 (--profile-dir), the perf ledger (--perfLedger: one `batch_run` record
 per run, obs/ledger.py) and tuned knobs (--tuneProfile, runtime/
 tuning.py).  Every run ends with the `run metrics:` table of its registry
-window.  Subcommands: `ccs serve` (serve/server.py: the long-lived
-engine on the card behind the NDJSON/TCP protocol; `ccs serve --port 0`
-prints `CCS-SERVE-READY host port` and drains on SIGTERM), `ccs router`
+window.  The kernels are built into and loaded from the build cache
+(runtime/cache.py: build/kernels/ of the checkout, else
+~/.cache/pbccs_tpu_torch/kernels).  Subcommands, every one of
+pbccs_tpu.cli's: `ccs serve` (serve/server.py: the long-lived engine on
+the card behind the NDJSON/TCP protocol; `ccs serve --port 0` prints
+`CCS-SERVE-READY host port` and drains on SIGTERM), `ccs router`
 (serve/router.py: the health-checked front door over `ccs serve`
 replicas; it holds no CUDA context), `ccs fleet` (serve/supervisor.py:
 a supervised router that spawns its `ccs serve` children, or an admin
 action against one), `ccs top` (obs/console.py), `ccs roofline`
-(obs/roofline.py), `ccs warmup` (sched/warmup.py) and `ccs tune`
-(tune/cli.py, with its serve leg); only `analyze` is left out, and
-argparse rejects it.  On
-the card, a band width the kernels cannot polish at (PBCCS_BAND_W, a
-tuned band_w; ops/fwdbwd_cuda.RUN_WIDTHS) exits 2 before anything is
-written.
+(obs/roofline.py), `ccs warmup` (sched/warmup.py), `ccs tune`
+(tune/cli.py, with its serve leg) and `ccs analyze` (analysis/cli.py:
+the static analysis of the port's own code, which imports neither torch
+nor the code it reads); `ccs serve`, `ccs warmup` and `ccs fleet` take
+`--compileCache DIR`.  On the card, a band width the kernels cannot
+polish at (PBCCS_BAND_W, a tuned band_w; ops/fwdbwd_cuda.RUN_WIDTHS)
+exits 2 before anything is written.
 
 `run(argv, device=...)` is the in-process entry: the polish runs on the
 card unless `device` names another (the tests pass device="cpu"; with
@@ -450,6 +454,11 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
         from pbccs_tpu_torch.tune.cli import run_tune
 
         return run_tune(argv[1:], device=device)
+    if argv and argv[0] == "analyze":
+        # `ccs analyze`: static analysis of the port (analysis/)
+        from pbccs_tpu_torch.analysis.cli import run_analyze
+
+        return run_analyze(argv[1:])
     args = build_parser().parse_args(argv)
     from pbccs_tpu_torch.runtime import tuning
 
@@ -458,6 +467,10 @@ def run(argv: list[str] | None = None, *, device=None) -> int:
 
 
 def _run(args, device) -> int:
+    from pbccs_tpu_torch.runtime.cache import enable_compilation_cache
+
+    enable_compilation_cache()
+
     log = Logger.default(Logger(
         stream=open(args.logFile, "w") if args.logFile else sys.stderr,
         level=LogLevel.from_string(args.logLevel)))

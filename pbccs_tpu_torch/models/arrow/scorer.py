@@ -14,6 +14,7 @@ mutations as full K1 forward refills of the mutated windows."""
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
@@ -93,7 +94,12 @@ def guided_fill_passes(jmax: int) -> int:
     """Argmax-guided refill ("flip-flop") passes after the diagonal-band
     fill at this template bucket: none up to 3 kb (the path drifts well
     inside W/2), one up to 8 kb, three beyond (the JAX package's
-    schedule, from its drift model std ~ sqrt(2 p_indel L) rows)."""
+    schedule, from its drift model std ~ sqrt(2 p_indel L) rows).
+
+    Env override PBCCS_GUIDED: integer pass count, or 0 to disable."""
+    env = os.environ.get("PBCCS_GUIDED")
+    if env is not None:
+        return max(0, int(env))
     if jmax <= 3072:
         return 0
     return 1 if jmax <= 8192 else 3

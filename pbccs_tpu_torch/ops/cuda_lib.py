@@ -2,10 +2,15 @@
 
 Each source is compiled by nvcc for Hopper (sm_90a) into a shared library
 with a plain C interface and bound with ctypes; no PyTorch headers are
-compiled, so a build takes seconds.  Libraries land in build/kernels/ at
-the repository root (listed in .gitignore) and are rebuilt when missing
-or older than their source or than any shared header (csrc/*.cuh).
-Nothing here runs at import time.
+compiled, so a build takes seconds.  Libraries land in the build cache
+(runtime/cache.py: `--compileCache DIR`, else build/kernels/ of the
+checkout, listed in .gitignore), each named after a hash of its source,
+the shared headers (csrc/*.cuh) and NVCC_FLAGS, so a library is built
+when no library of that name is there, and a directory shared by
+several checkouts or replicas never serves one built from other
+sources.  A build is staged under a per-process temp name, fsynced and
+renamed into place, so replicas building the same library at once
+publish it whole.  Nothing here runs at import time.
 
 Every kernel entry point has the signature convention
     int pbccs_<name>(<device pointers>..., <ints>..., void* stream)
@@ -20,17 +25,18 @@ wrapper counts its launches in a `launches` attribute through
 `count_launch`, under one lock, since the CLI's worker threads launch
 concurrently.
 
-build/kernels/ is the port's persistent compile cache, so its events are
+The build cache is the port's persistent compile cache, so its events are
 counted under pbccs_tpu's compile-cache metric names (the perf ledger's
 `compile` class): ``ccs_compiles_total`` once per nvcc build, and
-``ccs_compile_cache_events_total{kind}`` once per library `load` first
-asks for in a process -- a hit when a fresh library is already on disk,
-a miss when it has to be built."""
+``ccs_compile_cache_events_total{kind}`` once per library `load` (or
+`load_all`) first asks for in a process -- a hit when the library is
+already in the build cache, a miss when it has to be built."""
 
 from __future__ import annotations
 
 import ctypes
 import glob
+import hashlib
 import os
 import shutil
 import subprocess
@@ -38,10 +44,10 @@ import threading
 import time
 
 from pbccs_tpu_torch.obs.metrics import default_registry
+from pbccs_tpu_torch.runtime import cache
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
 
 #: nvcc flags: Hopper target with the `a` features, a plain-C shared
 #: library, ptxas resource report; no FMA contraction, so each kernel
@@ -87,31 +93,49 @@ def nvcc_path() -> str:
                       "machine with the card")
 
 
-def _paths(name: str) -> tuple[str, str]:
-    return (os.path.join(CSRC_DIR, f"{name}.cu"),
-            os.path.join(BUILD_DIR, f"lib{name}.so"))
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
-def _stale(name: str) -> bool:
-    src, lib = _paths(name)
-    if not os.path.exists(lib):
-        return True
-    deps = [src, *glob.glob(os.path.join(CSRC_DIR, "*.cuh"))]
-    return max(map(os.path.getmtime, deps)) > os.path.getmtime(lib)
+def lib_path(name: str) -> str:
+    """The library of kernel `name` in the build cache: lib<name>-<hash>
+    .so, the hash over its source, the shared headers and NVCC_FLAGS."""
+    h = hashlib.sha256()
+    for path in (source_path(name),
+                 *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))):
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return os.path.join(cache.cache_dir(),
+                        f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
+def _publish(tmp: str, lib: str) -> None:
+    """Rename a built library into place once its bytes are on disk, and
+    the rename itself after it (a crash never leaves a torn library
+    under a name that says it is built)."""
+    with open(tmp, "rb") as fh:
+        os.fsync(fh.fileno())
+    os.replace(tmp, lib)
+    fd = os.open(os.path.dirname(lib), os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
 
 
 def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
-    """Compile the named kernels that are missing or stale (all of them
-    with `force`), one nvcc process per source, all started together.
-    Returns BUILD_LOG."""
-    todo = [n for n in names if force or _stale(n)]
+    """Compile the named kernels whose library is not in the build cache
+    (all of them with `force`), one nvcc process per source, all started
+    together.  Returns BUILD_LOG."""
+    todo = [n for n in names if force or not os.path.exists(lib_path(n))]
     if not todo:
         return BUILD_LOG
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    os.makedirs(cache.cache_dir(), exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
     for name in todo:
-        src, lib = _paths(name)
+        src, lib = source_path(name), lib_path(name)
         tmp = f"{lib}.{os.getpid()}.tmp"
         _m_compiles.inc()
         procs[name] = (subprocess.Popen(
@@ -126,7 +150,7 @@ def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
         if proc.returncode != 0:
             failed.append(name)
             continue
-        os.replace(tmp, lib)
+        _publish(tmp, lib)
     if failed:
         msg = "\n".join(f"--- {n}:\n{BUILD_LOG[n]['output']}" for n in failed)
         raise KernelError(f"nvcc failed for {failed}:\n{msg}")
@@ -135,18 +159,24 @@ def build(names=KERNELS, force: bool = False) -> dict[str, dict]:
 
 def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of one kernel library, built if needed."""
+    return load_all([name])[0]
+
+
+def load_all(names=KERNELS) -> list[ctypes.CDLL]:
+    """The ctypes handles of the named kernel libraries; those not in the
+    build cache are built first, all together (build)."""
     with _lock:
-        lib = _libs.get(name)
-        if lib is None:
-            _m_cache["miss" if _stale(name) else "hit"].inc()
-            build([name])
+        todo = {n: lib_path(n) for n in names if n not in _libs}
+        for path in todo.values():
+            _m_cache["hit" if os.path.exists(path) else "miss"].inc()
+        build(list(todo))
+        for name, path in todo.items():
             try:
-                lib = ctypes.CDLL(_paths(name)[1])
+                _libs[name] = ctypes.CDLL(path)
             except OSError as e:
                 raise KernelError(f"cannot load the {name} kernel: {e}") \
                     from e
-            _libs[name] = lib
-        return lib
+        return [_libs[n] for n in names]
 
 
 def check(err: int, what: str) -> None:

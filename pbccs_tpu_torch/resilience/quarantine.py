@@ -53,22 +53,25 @@ from pbccs_tpu_torch.runtime.logging import Logger
 DRAFT_QV_CAP = 10
 
 _reg = default_registry()
-#: event_counts() key -> (metric name, help)
-_EVENTS = {
-    "isolations": ("ccs_quarantine_isolations_total",
-                   "Failed batch dispatches handed to bisection"),
-    "bisect_dispatches": (
+#: event_counts() key -> counter (registered by literal name, so `ccs
+#: analyze`'s metric inventory sees each one)
+_m = {
+    "isolations": _reg.counter(
+        "ccs_quarantine_isolations_total",
+        "Failed batch dispatches handed to bisection"),
+    "bisect_dispatches": _reg.counter(
         "ccs_quarantine_bisect_dispatches_total",
         "Extra sub-batch dispatches spent isolating poison ZMWs"),
-    "serial_rescues": ("ccs_quarantine_serial_rescues_total",
-                       "Serial-pipeline rescues of single ZMWs"),
-    "quarantined": (
+    "serial_rescues": _reg.counter(
+        "ccs_quarantine_serial_rescues_total",
+        "Serial-pipeline rescues of single ZMWs"),
+    "quarantined": _reg.counter(
         "ccs_quarantined_zmws_total",
         "ZMWs isolated by bisection whose serial rescue also failed"),
-    "degraded": ("ccs_degraded_zmws_total",
-                 "Quarantined ZMWs emitted as draft-only consensus"),
+    "degraded": _reg.counter(
+        "ccs_degraded_zmws_total",
+        "Quarantined ZMWs emitted as draft-only consensus"),
 }
-_m = {k: _reg.counter(name, help) for k, (name, help) in _EVENTS.items()}
 _window_lock = threading.Lock()
 _window = _reg.scope()
 
@@ -79,8 +82,7 @@ def event_counts() -> dict[str, int]:
     quarantined, and those of them emitted draft-only."""
     with _window_lock:
         win = _window
-    return {k: int(win.counter_value(name))
-            for k, (name, _) in _EVENTS.items()}
+    return {k: int(win.counter_value(m.name)) for k, m in _m.items()}
 
 
 def reset_event_counts() -> None:

@@ -3,27 +3,30 @@ bucket menu's cost cards before traffic (port of
 pbccs_tpu.sched.warmup).
 
 What a warmup leaves for a later `ccs` process is what survives the
-process: the kernel libraries in build/kernels/, the port's persistent
-compile cache (ops/cuda_lib.py; counted under ``ccs_compiles_total`` and
-``ccs_compile_cache_events_total{kind}``), and each bucket's roofline
-cost card in the card cache (obs/roofline.cards_path).  The allocator,
-the CUDA context, the loaded libraries and the memory governor's
-ceilings end with the process, and the kernels are built as sm_90a
-machine code (no driver JIT cache), so the port drives no synthetic
-batch: pbccs_tpu's drive fills an XLA compile cache that has no
-counterpart here.  Each `--bucket ZxPASSESxLEN` names a bucket by
-workload geometry: Z ZMWs per batch, PASSES subreads per ZMW, LEN-base
-templates.
+process: the kernel libraries in the build cache, the port's persistent
+compile cache (`--compileCache DIR`, else build/kernels/ of the
+checkout; runtime/cache.py and ops/cuda_lib.py, counted under
+``ccs_compiles_total`` and ``ccs_compile_cache_events_total{kind}``),
+which a serve fleet pointed at the same DIR loads instead of building;
+and each bucket's roofline cost card in the card cache
+(obs/roofline.cards_path).  The allocator, the CUDA context, the loaded
+libraries and the memory governor's ceilings end with the process, and
+the kernels are built as sm_90a machine code (no driver JIT cache), so
+the port drives no synthetic batch: pbccs_tpu's drive fills an XLA
+compile cache that has no counterpart here.  Each `--bucket
+ZxPASSESxLEN` names a bucket by workload geometry: Z ZMWs per batch,
+PASSES subreads per ZMW, LEN-base templates.
 
 By default each bucket is reported for ONE device; `--allDevices`
-reports every selected device.  There is no `--compileCache`: the port
-has no XLA cache to point at, and argparse rejects the flag.
+reports every selected device.
 
     python -m pbccs_tpu_torch.cli warmup --bucket 32x10x2000
 
-Prints one JSON report: `warmed` entries with `bucket`, `device`,
-`seconds`, `shapes` (what a matching batch polishes at) and the
-bucket's roofline `cost_card`.
+Prints one JSON report: the build cache's directory (`compile_cache`),
+on the card the kernel libraries loaded and the compiles and cache hits
+and misses that took (`kernels`), and `warmed` entries with `bucket`,
+`device`, `seconds`, `shapes` (what a matching batch polishes at) and
+the bucket's roofline `cost_card`.
 """
 
 from __future__ import annotations
@@ -81,6 +84,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--allDevices", action="store_true",
                    help="Report every bucket on every device (default: "
                         "one device).")
+    p.add_argument("--compileCache", default=None, metavar="DIR",
+                   help="Kernel build-cache directory to populate -- "
+                        "point the serve fleet's --compileCache at the "
+                        "same DIR so replica (re)starts load the warmed "
+                        "kernel libraries instead of building them "
+                        "(default: build/kernels/ of the checkout, else "
+                        "~/.cache/pbccs_tpu_torch/kernels).")
     p.add_argument("--logLevel", default="INFO")
     return p
 
@@ -103,14 +113,15 @@ def _bucket_shapes(n_zmws: int, n_passes: int, tpl_len: int) -> dict:
 
 def _load_kernels(log) -> dict:
     """Build (or find built) and load every kernel library; returns the
-    compile and cache counts of this call."""
+    libraries, the seconds that took, and its compile and cache counts."""
     from pbccs_tpu_torch.obs.metrics import default_registry
     from pbccs_tpu_torch.ops import cuda_lib
 
     scope = default_registry().scope()
-    for name in cuda_lib.KERNELS:
-        cuda_lib.load(name)
-    out = {"libraries": list(cuda_lib.KERNELS),
+    t0 = time.monotonic()
+    cuda_lib.load_all(cuda_lib.KERNELS)
+    out = {"libraries": [cuda_lib.lib_path(n) for n in cuda_lib.KERNELS],
+           "seconds": time.monotonic() - t0,
            "compiles": int(scope.counter_value("ccs_compiles_total")),
            "cache_hits": int(scope.counter_value(
                "ccs_compile_cache_events_total", kind="hit")),
@@ -141,6 +152,10 @@ def run_warmup(argv: list[str] | None = None, *, device=None) -> int:
             "supplies a warmup_buckets menu)")
     entries = [parse_bucket(b) for b in args.bucket]
 
+    from pbccs_tpu_torch.runtime.cache import enable_compilation_cache
+
+    out: dict = {"compile_cache": enable_compilation_cache(args.compileCache)}
+
     from pbccs_tpu_torch.sched.pool import device_name, select_devices
 
     try:
@@ -148,7 +163,6 @@ def run_warmup(argv: list[str] | None = None, *, device=None) -> int:
     except ValueError as e:
         raise SystemExit(f"--devices: {e}") from None
     targets = devices if args.allDevices else devices[:1]
-    out: dict = {}
     if any(d.type == "cuda" for d in targets):
         out["kernels"] = _load_kernels(log)
 

@@ -1101,6 +1101,7 @@ class CcsRouter:
             replica.failovers += len(moved)
             replica.m_failover.inc(len(moved))
             # caller holds self._lock (the _locked-suffix contract)
+            # ccs-analyze: ignore[CONC001]
             self._failover_total += len(moved)
         return moved
 

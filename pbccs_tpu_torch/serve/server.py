@@ -2,9 +2,9 @@
 
 Port of pbccs_tpu.serve.server: the same sessions, armor, verbs, flags
 and ready/drain lines.  `run_serve(argv, device=...)` polishes on the
-card unless `device` names another (the tests pass device="cpu").  Not
-ported: `--compileCache` (an XLA cache has no counterpart; argparse
-rejects the flag, exit 2).
+card unless `device` names another (the tests pass device="cpu").
+`--compileCache DIR` points the kernel builds at DIR (runtime/cache.py),
+so replicas and restarts pointed at one DIR share its libraries.
 
 One accept loop, one reader thread per client session.  Replies are
 written by whichever thread completes them (engine polish workers via
@@ -656,6 +656,12 @@ def build_serve_parser() -> argparse.ArgumentParser:
                    default=defaults.perf_ledger_interval_s,
                    help="Seconds between perf-ledger snapshots. "
                         "Default = %(default)s")
+    p.add_argument("--compileCache", default=None, metavar="DIR",
+                   help="Kernel build-cache directory shared across "
+                        "replicas/restarts: a rolling restart loads the "
+                        "kernel libraries from disk instead of building "
+                        "them (default: build/kernels/ of the checkout, "
+                        "else ~/.cache/pbccs_tpu_torch/kernels).")
     p.add_argument("--tuneProfile", default=None, metavar="PATH|auto",
                    help="ccs-tune host profile (runtime/tuning.py): "
                         "supplies defaults for --maxBatch/--maxWaitMs "
@@ -718,6 +724,9 @@ def _run_serve(args, device) -> int:
     faults.maybe_fail("serve.start",
                       keys=(os.environ.get("PBCCS_FLEET_SLOT", ""),))
 
+    from pbccs_tpu_torch.runtime.cache import enable_compilation_cache
+
+    enable_compilation_cache(args.compileCache)
     log = Logger.default(Logger(level=LogLevel.from_string(args.logLevel)))
 
     from pbccs_tpu_torch.cli import band_width_refused

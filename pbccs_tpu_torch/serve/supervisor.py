@@ -1,18 +1,15 @@
 """Fleet autopilot: self-healing replica supervision for `ccs serve`.
 
 Port of pbccs_tpu.serve.supervisor: the same state machine, flags,
-status block and `fleet_event` ledger records.  Two differences:
-
-  * the children are the port's `ccs serve` (``python -m
-    pbccs_tpu_torch.cli serve``), which polish on the card; with
-    ``run_fleet(argv, device="cpu")`` (the tests) each child calls
-    ``run_serve(..., device="cpu")`` instead.  A child that finds no
-    card exits non-zero before its ready line, which surfaces as a
-    SpawnError with that exit code and, repeated, quarantines the slot;
-    nothing falls back to the CPU;
-  * no ``--compileCache``: the port's `ccs serve` has no such flag.  A
-    respawned replica warm-starts from the kernel builds already under
-    build/kernels/.
+status block and `fleet_event` ledger records.  The children are the
+port's `ccs serve` (``python -m pbccs_tpu_torch.cli serve``), which
+polish on the card; with ``run_fleet(argv, device="cpu")`` (the tests)
+each child calls ``run_serve(..., device="cpu")`` instead.  A child that
+finds no card exits non-zero before its ready line, which surfaces as a
+SpawnError with that exit code and, repeated, quarantines the slot;
+nothing falls back to the CPU.  ``--compileCache DIR`` is forwarded to
+every child, so a respawned replica loads the kernel libraries the
+fleet already built there.
 
 `ccs fleet` is the control plane the router deliberately is not: it
 SPAWNS the replicas (router + N `ccs serve` child processes), watches
@@ -824,6 +821,10 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                    help="Extra argument passed to every `ccs serve` "
                         "child (repeatable; use --serveArg=--flag=v "
                         "for flag-shaped values).")
+    p.add_argument("--compileCache", default=None, metavar="DIR",
+                   help="Persistent compile cache shared by every "
+                        "replica: respawns and scale-ups warm-start "
+                        "instead of recompiling. Default: off.")
     p.add_argument("--backoffBase", type=float,
                    default=sdefaults.backoff_base_s,
                    help="First respawn delay (seconds); doubles per "
@@ -932,6 +933,8 @@ def child_serve_args(args) -> list[str]:
     values still come last so an argparse rematch lets them win)."""
     serve_args = ["--maxInflightPerSession", "256",
                   "--logLevel", "ERROR"]
+    if args.compileCache:
+        serve_args += ["--compileCache", args.compileCache]
     if args.tlsCert:
         serve_args += ["--tlsCert", args.tlsCert, "--tlsKey", args.tlsKey]
     if args.authTokens:

@@ -802,3 +802,51 @@ def test_mesh_across_cards_matches_unsharded(cuda):
     want = _mesh_polish(tasks, device="cuda:0")
     for mesh in (make_zmw_mesh(n, 1), make_zmw_mesh(1, n)):
         assert _mesh_polish(tasks, mesh=mesh) == want
+
+
+BUILD_CHILD = """\
+import json, sys
+from pbccs_tpu_torch.obs.metrics import default_registry
+from pbccs_tpu_torch.ops import cuda_lib
+from pbccs_tpu_torch.runtime.cache import enable_compilation_cache
+
+enable_compilation_cache(sys.argv[1])
+scope = default_registry().scope()
+for name in cuda_lib.KERNELS:
+    cuda_lib.load(name)
+print(json.dumps({
+    "compiles": scope.counter_value("ccs_compiles_total"),
+    "hit": scope.counter_value("ccs_compile_cache_events_total", kind="hit"),
+    "miss": scope.counter_value("ccs_compile_cache_events_total",
+                                kind="miss"),
+    "libs": [cuda_lib.lib_path(n) for n in cuda_lib.KERNELS]}))
+"""
+
+
+def test_compile_cache_second_build_is_all_hits(cuda, tmp_path):
+    """Two processes building the kernels into one --compileCache: the
+    first builds each library there (one compile and one miss each),
+    the second loads them all (hits only, no compile)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from pbccs_tpu_torch.ops import cuda_lib
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = str(tmp_path / "kcache")
+    runs = []
+    for _ in range(2):
+        proc = subprocess.run([sys.executable, "-c", BUILD_CHILD, d],
+                              cwd=repo, capture_output=True, text=True,
+                              timeout=600,
+                              env=dict(os.environ, PYTHONPATH=repo))
+        assert proc.returncode == 0, proc.stderr
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    n = len(cuda_lib.KERNELS)
+    assert (runs[0]["compiles"], runs[0]["miss"], runs[0]["hit"]) == (n, n, 0)
+    assert runs[1] == {"compiles": 0, "hit": n, "miss": 0,
+                       "libs": runs[0]["libs"]}
+    assert sorted(os.listdir(d)) == sorted(os.path.basename(p)
+                                           for p in runs[0]["libs"])

@@ -11,8 +11,8 @@ The injectable spawn_fn/clock seams make every timing-shaped behavior
 (backoff schedule, quarantine window) deterministic here.
 
 Then the port's own: the spawned child command (the port's CLI on the
-card, a run_serve(device="cpu") child on the CPU), no --compileCache,
-and `ccs fleet` as a process on device="cpu" -- two real CPU children,
+card, a run_serve(device="cpu") child on the CPU), --compileCache
+forwarded only when given, and `ccs fleet` as a process on device="cpu" -- two real CPU children,
 a crash-loop fault on slot 1 that yields one `respawn` event, both
 slots up, SIGTERM exit 0 with no child left.  Every wait has a bound.
 """
@@ -617,9 +617,10 @@ class TestPortChildren:
         tail = child_serve_args(build_fleet_parser().parse_args([]))
         assert tail == ["--maxInflightPerSession", "256",
                         "--logLevel", "ERROR"]
-        with pytest.raises(SystemExit) as ei:
-            build_fleet_parser().parse_args(["--compileCache", "d"])
-        assert ei.value.code == 2
+        tail = child_serve_args(build_fleet_parser().parse_args(
+            ["--compileCache", "d"]))
+        assert tail == ["--maxInflightPerSession", "256",
+                        "--logLevel", "ERROR", "--compileCache", "d"]
 
     def test_child_without_a_card_fails_visibly(self, monkeypatch):
         """With no card visible and no device named, the spawned `ccs
