@@ -33,8 +33,8 @@ script exits non-zero):
      operand planes built (K1 coefficient planes, read-window planes,
      patch grids: must be none), and the live (read, 64-position) blocks
      K3 scored over its launches with K3's bound on them;
-  5. cross_device: 4 ZMWs of the draw through process_chunks on the card
-     and on the CPU: same consensus sequences, QVs within 1;
+  5. cross_device: N_CROSS (2) ZMWs of the draw through process_chunks on
+     the card and on the CPU: same consensus sequences, QVs within 1;
   6. quiver_fill (K2): the Quiver path's mutation-scoring fills of a
      2 kb ZMW of the draw (its true template as the draft, flat default
      QV tracks, the default QuiverConfig with every move, W=96).  At
@@ -54,9 +54,10 @@ script exits non-zero):
      log-likelihoods within 1e-4 absolute, log-scales within 1e-5
      (expected 0);
   7. quiver_path: process_chunks with ConsensusSettings(model="quiver")
-     over 4 simulated 2 kb, 3-10-pass ZMWs on the card, launch counters
-     zeroed just before and read just after; then one ~300 bp, 5-pass
-     ZMW on the card and on the CPU: same consensus, QVs within 1;
+     over N_QUIVER (2) simulated 2 kb, 3-10-pass ZMWs on the card, launch
+     counters zeroed just before and read just after; then one
+     QUIVER_SMALL (120 bp, 5-pass) ZMW on the card and on the CPU: same
+     consensus, QVs within 1;
   8. refine_fallbacks: a tiny-window task (a read clipped to 6 template
      columns) and a bucket-growth task (a draft missing every fifth
      base) through BatchPolisher.refine + consensus_qvs on the card and
@@ -232,6 +233,35 @@ script exits non-zero):
      K1's launches of each run (more with the guided refills), the same
      tallies.  Then `python -m pbccs_tpu_torch.analysis.cli` on this
      tree: exit 0, its seconds.
+ 19. configs: the repository's configurations 2-4 (BASELINE.json
+     "configs", bench.py's SWEEP_CONFIGS) at their own geometry, drawn
+     with their own seed (CONFIGS_SEED) by the bulk sampler, one JSON
+     line per leg, launch counters zeroed and the metrics registry
+     windowed around each run.  (a) cfg3: 4 ZMWs of 15 kb x 3 passes in
+     one process_chunks batch of 4: tally, each ZMW's draft and
+     consensus identity to its truth and predicted accuracy, (Imax,
+     Jmax, R, Z), W and guided_fill_passes(Jmax), the 2x retry's ZMWs
+     and reads, rounds, K1 / K3 launches, wall and peak memory; no
+     Other, K1 and K3 launched, Jmax past 8 kb with 3 guided passes,
+     no Success below its draft's identity; the ZMWs polish with the
+     z-score gate off (`--minZScore NaN`, as bench.py polishes them), and
+     the tally at the default gate is printed beside; then, on one
+     setup's reads, windows and guided offsets (from K1's diagonal
+     forward fill), K1's guided forward fill (CFG3_K1_DIRS) and K3 with
+     every block live against their plain versions, bitwise, with
+     CUDA-event ms beside the bound.
+     (b) cfg4: 64 ZMWs of 500 bp x 30 passes as a subread BAM through
+     `ccs --chunkSize 32`: tally from the report, identity mean, minimum
+     and exact recoveries, R (32 required), rounds, launches, wall, ZMW/s
+     and peak memory; records byte-equal to process_chunks on the CLI's
+     gated batches, and the first gated ZMW polished on the CPU on the
+     parity standard against its record.  (c) config 2: phase 4's 64
+     ZMWs and 960 more (2 kb, 3-10 passes) in one process_chunks batch
+     of 1,024: peak memory, OOM splits, pre-splits and ceilings (the
+     governor's snapshot, then reset), every lockstep dispatch's size and
+     outcome and every setup's shapes, rounds, launches, wall, ZMW/s and
+     tally; no Other, 1,024 tallied, and phase 4's records on the parity
+     standard (the byte-equal count printed).
 Then each phase's seconds as one JSON line, the card's name and power
 limit, the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -241,6 +271,7 @@ checkout of the repository.  Imports nothing of JAX."""
 
 from __future__ import annotations
 
+import contextlib
 import inspect
 import json
 import subprocess
@@ -255,10 +286,12 @@ TPL_LEN = 2000
 PASSES = (3, 10)
 N_ZMWS = 64
 BATCH = 32
-N_CROSS = 4
-N_QUIVER = 4
+N_CROSS = 2
+N_QUIVER = 2
 N_SERIAL = 4
-QUIVER_SMALL = (300, 5)     # template length, passes of the card-vs-CPU ZMW
+#: template length, passes of phase 7's card-vs-CPU Quiver ZMW (bench.py's
+#: bench_quiver template length)
+QUIVER_SMALL = (120, 5)
 
 
 def emit(obj) -> None:
@@ -272,18 +305,22 @@ def card_line() -> str:
         text=True, timeout=60).stdout.strip().splitlines()[0]
 
 
-def simulate_chunks(rng, n: int, tpl_len: int, passes: tuple[int, int]):
-    """n simulated ZMWs (full-pass subreads, alternating strands)."""
+def simulate_chunks(rng, n: int, tpl_len: int, passes: tuple[int, int],
+                    prefix: str = "smoke", bulk: bool = False):
+    """n simulated ZMWs (full-pass subreads, alternating strands), drawn
+    read by read (simulate_zmw) or in bulk (simulate_zmw_bulk: the same
+    model, fast enough for phase 19's thousands of ZMWs)."""
     from pbccs_tpu_torch.pipeline import Chunk, Subread
-    from pbccs_tpu_torch.simulate import simulate_zmw
+    from pbccs_tpu_torch.simulate import simulate_zmw, simulate_zmw_bulk
 
+    sim = simulate_zmw_bulk if bulk else simulate_zmw
     chunks, truths = [], []
     for z in range(n):
         npass = int(rng.integers(passes[0], passes[1] + 1))
-        tpl, reads, _, snr = simulate_zmw(rng, tpl_len, npass)
-        chunks.append(Chunk(f"smoke/{z}", [Subread(f"smoke/{z}/{i}", r)
-                                           for i, r in enumerate(reads)],
-                            snr))
+        tpl, reads, _, snr = sim(rng, tpl_len, npass)
+        chunks.append(Chunk(f"{prefix}/{z}",
+                            [Subread(f"{prefix}/{z}/{i}", r)
+                             for i, r in enumerate(reads)], snr))
         truths.append(tpl)
     return chunks, truths
 
@@ -373,12 +410,22 @@ def phase_build() -> dict:
 def kernel_fixture(chunks, device):
     """Main-path-shaped fill inputs: one batch's ZMWs (true templates as
     drafts, full-window reads) through the BatchPolisher setup."""
-    from pbccs_tpu_torch.parallel.batch import BatchPolisher, ZmwTask
+    from pbccs_tpu_torch.parallel.batch import ZmwTask
 
-    tasks = [ZmwTask(c.id, truth, c.snr, [r.seq for r in c.reads],
-                     [i % 2 for i in range(len(c.reads))],
-                     [0] * len(c.reads), [len(truth)] * len(c.reads))
-             for c, truth in chunks]
+    return task_fixture([ZmwTask(c.id, truth, c.snr,
+                                 [r.seq for r in c.reads],
+                                 [i % 2 for i in range(len(c.reads))],
+                                 [0] * len(c.reads),
+                                 [len(truth)] * len(c.reads))
+                         for c, truth in chunks], device)
+
+
+def task_fixture(tasks, device):
+    """The fill inputs of one BatchPolisher setup over `tasks`: its reads,
+    template windows and transition tables flattened to (Z * R, ...), its
+    band width and shapes."""
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher
+
     pol = BatchPolisher(tasks, device=device)
     blk = pol._grid[0][0]
     s = blk.st
@@ -3330,6 +3377,414 @@ def phase_cache(drafted, serve_out) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 19: the repository's configurations (BASELINE.json "configs" 2-4,
+# bench.py's SWEEP_CONFIGS) at their own geometry
+# --------------------------------------------------------------------------
+
+#: phase 19's numpy seed (its own draws; phase 4's 64 ZMWs are reused)
+CONFIGS_SEED = 20261018
+#: (ZMWs, template length, passes) of each leg: bench.py's cfg3_15kb_3p
+#: (4 ZMWs in one batch), cfg4_30px500bp (64 ZMWs, with its batch of 32
+#: as the CLI's --chunkSize) and the spec point cfg2_2kb_3-10p (one batch
+#: of 1,024)
+CFG3 = (4, 15_000, (3, 3))
+CFG4 = (64, 500, (30, 30), 32)
+CFG2 = (1024, TPL_LEN, PASSES)
+#: K1 directions phase 19 holds against the plain version at cfg3's
+#: geometry: the guided forward fill only (the plain version takes ~33 s a
+#: direction at 16,769 columns on the card; the backward fill, held there
+#: bitwise as well when it was measured, would not fit the phase's time)
+CFG3_K1_DIRS = (False,)
+
+
+class _Observed:
+    """What the pipeline did inside an `observe()` block."""
+
+    def __init__(self, scope):
+        self.drafts, self.setups, self.dispatches = [], [], []
+        self.scope = scope
+
+    def rounds(self) -> int:
+        return int(self.scope.counter_value("ccs_refine_rounds_total",
+                                            source="device"))
+
+
+@contextlib.contextmanager
+def observe():
+    """Yields an _Observed holding the drafts prepare_batch made (.drafts,
+    PreparedZmw), each BatchPolisher setup (.setups: Imax, Jmax, R, Z, W,
+    ZMWs, real reads), each lockstep dispatch (.dispatches: ZMWs, and the
+    type of the exception it raised or None) and the metrics window
+    (.scope); the launch counters are zeroed and the peak-memory
+    statistics reset on entry."""
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.obs.metrics import default_registry
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher
+
+    saved = prepare, dispatch, setup = (tp.prepare_batch,
+                                        tp._polish_batch_arrow,
+                                        BatchPolisher._setup)
+
+    def keep_drafts(*args, **kwargs):
+        tally, preps = prepare(*args, **kwargs)
+        o.drafts += preps
+        return tally, preps
+
+    def note_dispatch(preps, *args, **kwargs):
+        row = [len(preps), None]
+        o.dispatches.append(row)
+        try:
+            return dispatch(preps, *args, **kwargs)
+        except BaseException as e:
+            row[1] = type(e).__name__   # the exception itself is not kept
+            raise
+
+    def note_setup(pol):
+        o.setups.append((pol._Imax, pol._Jmax, pol._R, pol._Z, pol._W,
+                         pol.n_zmws, int(pol._real_rows.sum())))
+        return setup(pol)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launch_counts()
+    o = _Observed(default_registry().scope())
+    tp.prepare_batch, tp._polish_batch_arrow = keep_drafts, note_dispatch
+    BatchPolisher._setup = note_setup
+    try:
+        yield o
+    finally:
+        (tp.prepare_batch, tp._polish_batch_arrow,
+         BatchPolisher._setup) = saved
+
+
+def _tally(t) -> dict:
+    return {f.value: c for f, c in t.counts.items() if c}
+
+
+def _parity(mine, ref) -> dict:
+    """Records `mine` against `ref` (id -> ConsensusResult) on the parity
+    standard: the same sequence with QVs within 1; the count whose BAM
+    records are also byte-equal."""
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch.io.bam import encode_record
+
+    same = byte_equal = 0
+    qv = 0
+    missing = []
+    for k, r in ref.items():
+        m = mine.get(k)
+        if m is None or m.sequence != r.sequence or len(m.qvs) != len(r.qvs):
+            missing.append(k)
+            continue
+        d = int(np.abs(m.qvs.astype(np.int64) - r.qvs.astype(np.int64))
+                .max(initial=0))
+        qv = max(qv, d)
+        same += d <= 1
+        byte_equal += encode_record(cli.result_record(m)) == encode_record(
+            cli.result_record(r))
+    return {"compared": len(ref), "same_sequence_qv_within_1": same,
+            "byte_equal": byte_equal, "qv_max_abs_diff": qv,
+            "sequence_differs": missing}
+
+
+def _cfg3_kernels(preps) -> dict:
+    """K1 and K3 against their plain versions at cfg3's own geometry: one
+    BatchPolisher setup over the leg's drafted ZMWs gives the reads,
+    template windows and tables; K1's diagonal forward fill gives the
+    guided offsets (fwdbwd.guided_band_offsets, as the setup's first
+    guided pass makes them), on which K1 fills forward and backward (the
+    guided alpha and the beta launch of the path; CFG3_K1_DIRS held
+    against the plain version) and K3 scores every block."""
+    from pbccs_tpu_torch import pipeline as tp
+    from pbccs_tpu_torch.ops import dense_score_cuda as ds
+    from pbccs_tpu_torch.ops import fwdbwd_cuda as fc
+    from pbccs_tpu_torch.ops.fwdbwd import (BandedMatrix, band_offsets,
+                                            guided_band_offsets)
+    from pbccs_tpu_torch.ops.mutation_score import scale_prefix, scale_suffix
+
+    fx = task_fixture(tp._polish_tasks(preps), "cuda")
+    i8, i32 = torch.int8, torch.int32
+    reads = fx["reads"].to(i8).contiguous()
+    rlens = fx["rlens"].to(i32).contiguous()
+    tpls = fx["win_tpl"].to(i8).contiguous()
+    trans = fx["win_trans"].float().contiguous()
+    J = fx["wlens"].to(i32).contiguous()
+    W = fx["W"]
+    R, Jm = tpls.shape
+    Imax, nc = reads.shape[1], Jm + 1
+    diag = band_offsets(rlens, J, nc, W)
+    alpha0 = fc.arrow_fill(reads, rlens, tpls, trans, J, diag, W,
+                           fc.MISMATCH_PROBABILITY, alpha=True,
+                           beta=False)[0]
+    offsets = guided_band_offsets(alpha0[0], diag, rlens, J, W)
+    del alpha0
+    args = (reads, rlens, tpls, trans, J, offsets, W,
+            fc.MISMATCH_PROBABILITY)
+    got = fc.arrow_fill(*args)
+    k1 = []
+    for d in CFG3_K1_DIRS:
+        plain, plain_ms = timed(lambda: fc.arrow_fill_plain(
+            *args, alpha=not d, beta=d)[d])
+        ms = cuda_ms(lambda: fc.arrow_fill(*args, alpha=not d, beta=d), 3)
+        b_ms, b_by, n_bytes, n_ops = k1_bound(reads, tpls, W, (d,))
+        k1.append({"direction": "backward" if d else "forward",
+                   "vals_bitwise": bool(torch.equal(got[d][0], plain[0])),
+                   "ls_bitwise": bool(torch.equal(got[d][1], plain[1])),
+                   "max_abs_err": float((got[d][0] - plain[0]).abs().max()),
+                   "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                   "bound_by": b_by, "bytes": n_bytes, "ops": n_ops})
+        del plain
+    alpha = BandedMatrix(got[0][0], offsets, got[0][1])
+    beta = BandedMatrix(got[1][0], offsets, got[1][1])
+    live = torch.ones(R, -(-Jm // ds.PB), dtype=i32, device=reads.device)
+    k3_args = (alpha.vals, beta.vals, offsets.to(i32).contiguous(),
+               scale_prefix(alpha.log_scales).contiguous(),
+               scale_suffix(beta.log_scales).contiguous(), reads, rlens,
+               tpls, J, trans, fx["tables"].float().contiguous(), live)
+    k3_got = ds.dense_score(*k3_args)
+    want, plain_ms = timed(lambda: ds.dense_score_plain(*k3_args))
+    ms = cuda_ms(lambda: ds.dense_score(*k3_args), 3)
+    b_ms, b_by, n_bytes, n_ops = k3_bound(R, nc, Imax, Jm, W)
+    # the interior (read, position, slot) cells, as phase 3 holds them
+    p = torch.arange(Jm, device=reads.device)[None, :, None]
+    endoff = torch.as_tensor([1, 1, 1, 1, 0, 0, 0, 0, 1],
+                             device=reads.device)
+    interior = (p >= 3) & (p + endoff <= J.to(torch.int64)[:, None, None] - 2)
+    k3 = {"bitwise": bool(torch.equal(k3_got, want)),
+          "interior_bitwise": bool(torch.equal(k3_got[interior],
+                                               want[interior])),
+          "interior_slots": int(interior.sum()),
+          "max_abs_err": float((k3_got[interior] - want[interior]).abs()
+                               .max()),
+          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+          "bound_by": b_by, "bytes": n_bytes, "ops": n_ops}
+    return {"shape": fx["shape"], "W": W, "nc": nc, "reads": R,
+            "k1": k1, "k3": k3}
+
+
+def _leg_cfg3(rng) -> tuple[dict, list]:
+    """(a) cfg3: CFG3's 15 kb, 3-pass ZMWs in one process_chunks batch,
+    with the z-score read gate off (`ccs --minZScore NaN`), as bench.py
+    polishes them: a 3-pass POA draft of 15 kb is nearly one of its
+    reads, so at the default -5 the other two fail the gate and every
+    ZMW is TooFewPasses (in pbccs_tpu too); that tally is printed."""
+    from pbccs_tpu_torch.models.arrow.params import decode_bases
+    from pbccs_tpu_torch.models.arrow.scorer import guided_fill_passes
+    from pbccs_tpu_torch.pipeline import (ConsensusSettings, Failure,
+                                          process_chunks)
+
+    n, tpl_len, passes = CFG3
+    chunks, truths = simulate_chunks(rng, n, tpl_len, passes, "cfg3",
+                                     bulk=True)
+    gated = process_chunks(chunks, device="cuda")
+    settings = ConsensusSettings(min_zscore=float("nan"))
+    with observe() as o:
+        t0 = time.monotonic()
+        tally = process_chunks(chunks, settings, device="cuda")
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    truth = {c.id: t for c, t in zip(chunks, truths)}
+    results = {r.id: r for r in tally.results}
+    zmws = []
+    for p in o.drafts:
+        r = results.get(p.chunk.id)
+        zmws.append({
+            "id": p.chunk.id,
+            "draft_len": len(p.css),
+            "draft_identity": identity(decode_bases(p.css),
+                                       truth[p.chunk.id]),
+            "identity": identity(r.sequence, truth[p.chunk.id])
+            if r else None,
+            "predicted_accuracy": float(r.predicted_accuracy) if r else None})
+    Imax, Jmax, R, Z, W = o.setups[0][:5]
+    retry = [s for s in o.setups[1:] if s[4] == 2 * W]
+    out = {"leg": "cfg3", "zmws": n, "tpl_len": tpl_len, "passes": passes,
+           "tally_default_min_zscore": _tally(gated),
+           "min_zscore": "nan", "tally": _tally(tally), "per_zmw": zmws,
+           "shape": {"Imax": Imax, "Jmax": Jmax, "R": R, "Z": Z},
+           "band_width": W, "guided_fill_passes": guided_fill_passes(Jmax),
+           "retry_2x": {"zmws": sum(s[5] for s in retry),
+                        "reads": sum(s[6] for s in retry)},
+           "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "wall_s": wall, "max_memory_allocated": peak}
+    failed = []
+    if tally.counts[Failure.OTHER] or tally.total != n:
+        failed.append(f"tally {out['tally']}")
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        failed.append(f"K1 and K3 not both launched: {launches}")
+    if Jmax <= 8192 or out["guided_fill_passes"] != 3:
+        failed.append(f"Jmax {Jmax}, guided passes "
+                      f"{out['guided_fill_passes']}: not the 3 of > 8 kb")
+    for z in zmws:
+        if z["identity"] is not None and z["identity"] < z["draft_identity"]:
+            failed.append(f"{z['id']} polished below its draft")
+    t0 = time.monotonic()
+    out["kernels"] = _cfg3_kernels(o.drafts)
+    out["kernels_s"] = time.monotonic() - t0
+    for row in out["kernels"]["k1"]:
+        if not (row["vals_bitwise"] and row["ls_bitwise"]):
+            failed.append(f"K1 {row['direction']} differs from its plain "
+                          f"version at cfg3's geometry")
+    if not out["kernels"]["k3"]["interior_bitwise"]:
+        failed.append("K3 differs from its plain version at cfg3's geometry")
+    return out, failed
+
+
+def _leg_cfg4(rng) -> tuple[dict, list]:
+    """(b) cfg4: CFG4's 500 bp, 30-pass ZMWs through the `ccs` CLI at
+    --chunkSize 32, records held against process_chunks on the CLI's
+    gated batches, one ZMW polished on the CPU as well."""
+    import os
+
+    from pbccs_tpu_torch import cli
+    from pbccs_tpu_torch.io.bam import BamReader, encode_record
+    from pbccs_tpu_torch.io.pbi import PbiIndex
+    from pbccs_tpu_torch.pipeline import ResultTally, process_chunks
+    from pbccs_tpu_torch.runtime.logging import Logger
+    from pbccs_tpu_torch.runtime.whitelist import Whitelist
+
+    n, tpl_len, passes, batch = CFG4
+    chunks, truths = simulate_chunks(rng, n, tpl_len, passes, "cfg4",
+                                     bulk=True)
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                     "configs")
+    os.makedirs(d, exist_ok=True)
+    in_bam, out_bam = (os.path.join(d, "cfg4_subreads.bam"),
+                       os.path.join(d, "cfg4_ccs.bam"))
+    report = os.path.join(d, "cfg4_report.csv")
+    write_subread_bam(in_bam, chunks)
+    argv = [out_bam, in_bam, "--chunkSize", str(batch), "--reportFile",
+            report, "--logLevel", "WARN"]
+    with observe() as o:
+        t0 = time.monotonic()
+        rc = cli.run(argv)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    with BamReader(out_bam) as r:
+        records = list(r)
+    pbi = PbiIndex(out_bam + ".pbi")
+    text = open(report).read()
+    args = cli.build_parser().parse_args(argv)
+    batches = list(cli.gated_chunks([in_bam], Whitelist("all"), args,
+                                    Logger.default(), ResultTally()))
+    want = []
+    for b in batches:
+        want += process_chunks(b, device="cuda").results
+    same = [encode_record(r) for r in records] == [
+        encode_record(cli.result_record(r)) for r in want]
+    truth = dict(enumerate(truths))
+    idents = [identity(r.seq, truth[r.tags["zm"]]) for r in records]
+    # one ZMW on the CPU: the first gated chunk, against the CLI's record
+    t1 = time.monotonic()
+    cpu = process_chunks(batches[0][:1], device="cpu")
+    cpu_s = time.monotonic() - t1
+    ref = {r.id: r for r in want if r.id == batches[0][0].id}
+    cross = _parity({r.id: r for r in cpu.results}, ref)
+    out = {"leg": "cfg4", "zmws": n, "tpl_len": tpl_len, "passes": passes,
+           "chunk_size": batch, "exit_code": rc, "records": len(records),
+           "report": text.strip().splitlines(),
+           "pbi_holes_match": [int(h) for h in pbi.holes]
+           == [r.tags["zm"] for r in records],
+           "identity_mean": float(np.mean(idents)) if idents else None,
+           "identity_min": float(np.min(idents)) if idents else None,
+           "exact": int(sum(i == 1.0 for i in idents)),
+           "R": sorted({s[2] for s in o.setups}),
+           "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "wall_s": wall, "zmw_per_s": n / wall,
+           "max_memory_allocated": peak,
+           "same_as_process_chunks": same,
+           "cpu_zmw": {"id": batches[0][0].id, "cpu_s": cpu_s,
+                       "tally": _tally(cpu), **cross}}
+    failed = []
+    if rc != 0 or not records or not same or not out["pbi_holes_match"]:
+        failed.append("the CLI's records, index or exit code are wrong")
+    if "Exception thrown" in text:
+        failed.append("the CLI tallied ZMWs as Other")
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        failed.append(f"K1 and K3 not both launched: {launches}")
+    if 32 not in out["R"]:
+        failed.append(f"R {out['R']}: no batch polished 32 read rows")
+    if not ref or cross["same_sequence_qv_within_1"] != 1:
+        failed.append("card and CPU disagree on the cfg4 ZMW")
+    return out, failed
+
+
+def _leg_cfg2(rng, chunks, main_tally) -> tuple[dict, list]:
+    """(c) config 2: phase 4's 64 ZMWs and 960 more of the same geometry
+    in one process_chunks batch of 1,024 on the card, the first 64
+    records held against phase 4's."""
+    from pbccs_tpu_torch.pipeline import Failure, process_chunks
+    from pbccs_tpu_torch.resilience import resources
+
+    n, tpl_len, passes = CFG2
+    more, _ = simulate_chunks(rng, n - len(chunks), tpl_len, passes,
+                              "cfg2", bulk=True)
+    batch = list(chunks) + more
+    gov = resources.default_governor()
+    gov.reset_device(resources.current_device())
+    try:
+        with observe() as o:
+            t0 = time.monotonic()
+            tally = process_chunks(batch, device="cuda")
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+        ceilings = gov.snapshot()
+    finally:
+        gov.reset_device(resources.current_device())
+        torch.cuda.empty_cache()
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    res = {r.id: r for r in tally.results}
+    ids = {c.id for c in chunks}
+    first = _parity(res, {r.id: r for r in main_tally.results
+                          if r.id in ids})
+    out = {"leg": "cfg2", "zmws": n, "tpl_len": tpl_len, "passes": passes,
+           "tally": _tally(tally), "max_memory_allocated": peak,
+           "oom_splits": o.scope.counter_value(
+               "ccs_resource_oom_splits_total"),
+           "presplit_batches": o.scope.counter_value(
+               "ccs_resource_presplit_batches_total"),
+           "oom_ceilings": o.scope.counter_value(
+               "ccs_resource_oom_ceilings_total"),
+           "governor": ceilings, "dispatches": o.dispatches,
+           "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "wall_s": wall, "zmw_per_s": n / wall,
+           "first_64_vs_phase4": first}
+    failed = []
+    if tally.counts[Failure.OTHER] or tally.total != n:
+        failed.append(f"tally {out['tally']} of {n}")
+    if launches["arrow_fill"] <= 0 or launches["dense_score"] <= 0:
+        failed.append(f"K1 and K3 not both launched: {launches}")
+    if first["same_sequence_qv_within_1"] != first["compared"]:
+        failed.append(f"first 64 against phase 4: {first}")
+    return out, failed
+
+
+def phase_configs(chunks, main_tally) -> dict:
+    """The repository's configurations 2-4 on the card, each leg printing
+    one JSON line (see the module docstring, phase 19)."""
+    rng = np.random.default_rng(CONFIGS_SEED)
+    out, failed = {"phase": "configs"}, []
+    for name, leg in (("cfg3", lambda: _leg_cfg3(rng)),
+                      ("cfg4", lambda: _leg_cfg4(rng)),
+                      ("cfg2", lambda: _leg_cfg2(rng, chunks, main_tally))):
+        t0 = time.monotonic()
+        row, bad = leg()
+        row["leg_s"] = time.monotonic() - t0
+        emit(row)
+        out[name] = row
+        failed += [f"({name}) {b}" for b in bad]
+    if failed:
+        raise AssertionError(f"configs: {failed}")
+    return out
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3381,6 +3836,7 @@ def main() -> int:
           {f"{CLI_MOVIE}/{hole}": t for hole, t in enumerate(truths)})
     timed("mesh", phase_mesh, drafted)
     timed("cache", phase_cache, drafted, serve_out)
+    timed("configs", phase_configs, chunks, main_tally)
     emit({"phase_seconds": seconds})
 
     # K1's launch on the main path: alpha and beta together at the
