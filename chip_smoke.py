@@ -31,8 +31,12 @@ script exits non-zero):
      just before and read just after; tally, yield, identity to the
      true template, wall time, ZMW/s, peak device memory, the full-size
      operand planes built (K1 coefficient planes, read-window planes,
-     patch grids: must be none), and the live (read, 64-position) blocks
-     K3 scored over its launches with K3's bound on them;
+     patch grids: must be none), the live (read, 64-position) blocks
+     K3 scored over its launches with K3's bound on them, and per batch
+     the straggler continuations it ran (the loop's early exit at Z // 32
+     live ZMWs: the parent's Z, the round its loop left at, the
+     stragglers, the sub-batch's Z, rounds and K1 / K3 launches); the
+     first batch must run one;
   5. cross_device: N_CROSS (2) ZMWs of the draw through process_chunks on
      the card and on the CPU: same consensus sequences, QVs within 1;
   6. quiver_fill (K2): the Quiver path's mutation-scoring fills of a
@@ -210,16 +214,21 @@ script exits non-zero):
      SIGTERM: exit 0 with no child left.
  17. mesh: phase 4's first batch of drafted ZMWs (its draft reused, no
      second draft) through BatchPolisher.refine + consensus_qvs
-     unsharded on cuda:0, then over make_zmw_mesh(2, 2, ["cuda:0"] * 4)
-     and make_zmw_mesh(1, 4, ["cuda:0"] * 4) (blocks of 3 reads at
-     R = 12), and over the distinct cards (n x 1 and 1 x n) when the
+     unsharded on cuda:0, then over make_zmw_mesh(2, 2, ["cuda:0"] * 4),
+     make_zmw_mesh(1, 4, ["cuda:0"] * 4) (blocks of 3 reads at R = 12)
+     and make_zmw_mesh(1, 1, ["cuda:0"]) (a mesh, so no early exit),
+     and over the distinct cards (n x 1 and 1 x n) when the
      machine has n >= 2 of them (else a line says the cross-card check
      did not run), launch counters zeroed just before and read just
-     after each: per grid the records (sequence, QVs) on the parity
-     standard against the unsharded run (all required; the byte-equal
-     count printed), refine results equal, K1 and K3 launched (in all
-     and per block), every block's tensors on its cell's device, wall
-     and peak device memory beside the unsharded run's.
+     after each: whether the unsharded run continued its stragglers
+     (and its continuations, as phase 4 prints them); per grid the
+     records (sequence, QVs) on the parity standard against the
+     unsharded run (all required; the byte-equal count printed, and how
+     many of the stragglers' records are byte-equal), refine results
+     equal, no continuation (a grid has no early exit), K1 and K3
+     launched (in all and per block), every block's tensors on its
+     cell's device, wall and peak device memory beside the unsharded
+     run's.
  18. cache: `python -m pbccs_tpu_torch.cli warmup --compileCache D
      --bucket CACHE_BUCKET` into a fresh temp directory D: its build
      seconds and one compile and one miss per kernel library, the
@@ -261,7 +270,8 @@ script exits non-zero):
      governor's snapshot, then reset), every lockstep dispatch's size and
      outcome and every setup's shapes, rounds, launches, wall, ZMW/s and
      tally; no Other, 1,024 tallied, and phase 4's records on the parity
-     standard (the byte-equal count printed).
+     standard (the byte-equal count printed).  Each leg prints its
+     straggler continuations as phase 4 does.
 Then each phase's seconds as one JSON line, the card's name and power
 limit, the kernel table as one JSON line, and as the last line
 {"ok": true, "device": {...}}.
@@ -650,6 +660,38 @@ def phase_dense(fx, kept) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def straggler_continuations():
+    """Yields a list that gets one dict per straggler continuation a
+    BatchPolisher runs inside the block (parallel.batch's early exit at
+    Z // 32 live ZMWs): the parent's Z, the round its loop left at, the
+    stragglers and their ids, the sub-batch's Z and rounds, and the K1 /
+    K3 launches the sub-batch made (its setup, rounds, QV sweep and any
+    continuation of its own, listed before it)."""
+    from pbccs_tpu_torch.parallel.batch import BatchPolisher
+
+    log, cont = [], BatchPolisher._continue
+
+    def logged(pol, zmws, opts, budget):
+        before, exit_round = _launch_counts(), pol._grid[0][0].st.it
+        sub, res = cont(pol, zmws, opts, budget)
+        after = _launch_counts()
+        log.append({"parent_z": pol._Z, "exit_round": exit_round,
+                    "stragglers": len(zmws),
+                    "ids": [pol._tasks[z].id for z in zmws],
+                    "sub_z": sub._Z,
+                    "sub_rounds": max(r.iterations for r in res),
+                    "sub_launches": {k: after[k] - before[k] for k in
+                                     ("arrow_fill", "dense_score")}})
+        return sub, res
+
+    BatchPolisher._continue = logged
+    try:
+        yield log
+    finally:
+        BatchPolisher._continue = cont
+
+
 def phase_main(chunks, truths) -> dict:
     from pbccs_tpu_torch import pipeline as tp
     from pbccs_tpu_torch.ops import dense_score_cuda as ds
@@ -716,10 +758,15 @@ def phase_main(chunks, truths) -> dict:
     dense_score.launches = 0
     t0 = time.monotonic()
     tally = ResultTally()
+    # per batch, the straggler continuations it ran
+    continued = []
     try:
-        for lo in range(0, len(chunks), BATCH):
-            tally.merge(process_chunks(chunks[lo: lo + BATCH],
-                                       device="cuda"))
+        with straggler_continuations() as conts:
+            for lo in range(0, len(chunks), BATCH):
+                n0 = len(conts)
+                tally.merge(process_chunks(chunks[lo: lo + BATCH],
+                                           device="cuda"))
+                continued.append(conts[n0:])
         torch.cuda.synchronize()
     finally:
         tp.prepare_batch = prepare_batch
@@ -749,11 +796,15 @@ def phase_main(chunks, truths) -> dict:
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "launches": launches, "full_planes_built": planes,
            "k3_live_blocks": blocks, "k3_blocks": all_blocks,
-           "k3_live_positions": positions, "k3_path_bound_ms": path_bound}
+           "k3_live_positions": positions, "k3_path_bound_ms": path_bound,
+           "continuations": continued}
     emit(out)
     if min(launches.values()) <= 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
+    if not continued[0]:
+        raise AssertionError("main path: the first batch ran no straggler "
+                             "continuation")
     if any(planes.values()):
         raise AssertionError(f"the main path built full planes: {planes}")
     if tally.counts[Failure.OTHER]:
@@ -3136,9 +3187,14 @@ def phase_mesh(drafted, card: str = "cuda:0") -> dict:
 
     tasks = tp._polish_tasks(drafted)
     settings = tp.ConsensusSettings()
-    ref = _mesh_polish(tasks, None, settings, card)
+    with straggler_continuations() as continued:
+        ref = _mesh_polish(tasks, None, settings, card)
+    # the unsharded loop exits early and continues its stragglers; no
+    # grid does (pbccs_tpu's sharded loop has no early exit)
+    stragglers = sorted(ref["pol"]._cont.sub_polishers)
     grids = [(f"2x2 {card}", make_zmw_mesh(2, 2, [card] * 4)),
-             (f"1x4 {card}", make_zmw_mesh(1, 4, [card] * 4))]
+             (f"1x4 {card}", make_zmw_mesh(1, 4, [card] * 4)),
+             (f"1x1 {card}", make_zmw_mesh(1, 1, [card]))]
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
         grids += [(f"{n_cards}x1 cards", make_zmw_mesh(n_cards, 1)),
@@ -3162,18 +3218,26 @@ def phase_mesh(drafted, card: str = "cuda:0") -> dict:
                "records": len(tasks), "on_parity_standard": parity,
                "byte_equal": byte_equal,
                "refine_results_equal": got["results"] == ref["results"],
+               "continued": bool(got["pol"]._cont.sub_polishers),
                "launches": got["launches"], "blocks": got["blocks"],
                "blocks_on_their_devices": got["on_device"],
                "wall_s": got["wall_s"],
                "max_memory_allocated": got["max_memory_allocated"]}
+        row["stragglers_byte_equal"] = sum(
+            int(np.array_equal(ref["qvs"][z], got["qvs"][z])
+                and np.array_equal(ref["pol"].tpls[z], got["pol"].tpls[z]))
+            for z in stragglers)
         rows.append(row)
         if (parity != len(tasks) or not row["refine_results_equal"]
-                or not got["on_device"]
+                or row["continued"] or not got["on_device"]
                 or min(got["launches"][k] for k in
                        ("arrow_fill", "dense_score")) <= 0):
             failed.append(name)
     out = {"phase": "mesh", "zmws": len(tasks), "cards": n_cards,
            "unsharded": {"shapes": ref["shapes"], "launches": ref["launches"],
+                         "continued": bool(stragglers),
+                         "stragglers": stragglers,
+                         "continuations": continued,
                          "wall_s": ref["wall_s"],
                          "max_memory_allocated":
                              ref["max_memory_allocated"],
@@ -3401,9 +3465,10 @@ CFG3_K1_DIRS = (False,)
 class _Observed:
     """What the pipeline did inside an `observe()` block."""
 
-    def __init__(self, scope):
+    def __init__(self, scope, continuations):
         self.drafts, self.setups, self.dispatches = [], [], []
         self.scope = scope
+        self.continuations = continuations
 
     def rounds(self) -> int:
         return int(self.scope.counter_value("ccs_refine_rounds_total",
@@ -3416,8 +3481,9 @@ def observe():
     PreparedZmw), each BatchPolisher setup (.setups: Imax, Jmax, R, Z, W,
     ZMWs, real reads), each lockstep dispatch (.dispatches: ZMWs, and the
     type of the exception it raised or None) and the metrics window
-    (.scope); the launch counters are zeroed and the peak-memory
-    statistics reset on entry."""
+    (.scope) and the straggler continuations (.continuations,
+    straggler_continuations' dicts); the launch counters are zeroed and
+    the peak-memory statistics reset on entry."""
     from pbccs_tpu_torch import pipeline as tp
     from pbccs_tpu_torch.obs.metrics import default_registry
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
@@ -3448,14 +3514,15 @@ def observe():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _zero_launch_counts()
-    o = _Observed(default_registry().scope())
-    tp.prepare_batch, tp._polish_batch_arrow = keep_drafts, note_dispatch
-    BatchPolisher._setup = note_setup
-    try:
-        yield o
-    finally:
-        (tp.prepare_batch, tp._polish_batch_arrow,
-         BatchPolisher._setup) = saved
+    with straggler_continuations() as conts:
+        o = _Observed(default_registry().scope(), conts)
+        tp.prepare_batch, tp._polish_batch_arrow = keep_drafts, note_dispatch
+        BatchPolisher._setup = note_setup
+        try:
+            yield o
+        finally:
+            (tp.prepare_batch, tp._polish_batch_arrow,
+             BatchPolisher._setup) = saved
 
 
 def _tally(t) -> dict:
@@ -3609,6 +3676,7 @@ def _leg_cfg3(rng) -> tuple[dict, list]:
            "retry_2x": {"zmws": sum(s[5] for s in retry),
                         "reads": sum(s[6] for s in retry)},
            "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "continuations": o.continuations,
            "wall_s": wall, "max_memory_allocated": peak}
     failed = []
     if tally.counts[Failure.OTHER] or tally.total != n:
@@ -3695,6 +3763,7 @@ def _leg_cfg4(rng) -> tuple[dict, list]:
            "exact": int(sum(i == 1.0 for i in idents)),
            "R": sorted({s[2] for s in o.setups}),
            "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "continuations": o.continuations,
            "wall_s": wall, "zmw_per_s": n / wall,
            "max_memory_allocated": peak,
            "same_as_process_chunks": same,
@@ -3753,6 +3822,7 @@ def _leg_cfg2(rng, chunks, main_tally) -> tuple[dict, list]:
                "ccs_resource_oom_ceilings_total"),
            "governor": ceilings, "dispatches": o.dispatches,
            "setups": o.setups, "rounds": o.rounds(), "launches": launches,
+           "continuations": o.continuations,
            "wall_s": wall, "zmw_per_s": n / wall,
            "first_64_vs_phase4": first}
     failed = []

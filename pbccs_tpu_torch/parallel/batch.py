@@ -20,11 +20,27 @@ shapes).
 
 A batch's host marshalling (premarshal) may be built ahead of time on a
 prepare thread of the device fleet's scheduled pipeline and adopted by
-the polisher (`prebaked=`).  Left out of the port: the straggler
-continuation.  The JAX package's host refinement loop is not ported: the
-device loop handles the two cases the JAX device loop bails to it for
-(tiny read windows, a template outgrowing its bucket) itself, with or
-without a mesh."""
+the polisher (`prebaked=`).  The JAX package's host refinement loop is
+not ported: the device loop handles the two cases the JAX device loop
+bails to it for (tiny read windows, a template outgrowing its bucket)
+itself, with or without a mesh.
+
+The straggler continuation (pbccs_tpu's): a lockstep round rebuilds every
+read's fills and runs the edge programs over all Z * R reads however few
+ZMWs are still live, so an unsharded loop stops once Z // 32 or fewer remain
+(device_refine.run_refine_loop) and refine() finishes those stragglers
+in a compact sub-batch at the parent's (Imax, Jmax, R) and band width,
+Z = straggler_shape_min_z(), with the remaining round budget.  Unlike
+pbccs_tpu's, the port's sub-batch starts from the stragglers' loop
+state as the parent left it -- read windows, live read rows, the nearby
+filter, the template-hash ring and the round counter -- so a straggler
+runs exactly the rounds the uninterrupted loop would have run
+(pbccs_tpu restarts the filter and the ring, which changes n_tested).
+The sub-batch's templates and counters merge into the parent's results,
+its QVs serve the stragglers (_Continuation), and a later refine() on
+the parent first rebuilds its fills from the current templates.  The
+exit and the continuation are one policy, straggler_exit_at: no exit
+under a mesh, nor in a batch of no more ZMWs than the threshold."""
 
 from __future__ import annotations
 
@@ -63,6 +79,7 @@ from pbccs_tpu_torch.parallel.mesh import (READ_AXIS, ZMW_AXIS, Mesh,
                                            as_device, make_zmw_mesh, pad_to,
                                            shard_batch)
 from pbccs_tpu_torch.runtime.timing import device_fetch
+from pbccs_tpu_torch.utils import next_pow2
 
 # bucket fill / padding-waste observability: padding of the (Z, R) axes is
 # real device work, so the fill ratios say how much of a batch's work
@@ -99,6 +116,29 @@ def _imax_bucket(raw_imax: int) -> int:
     steps, floor 64."""
     step = max(64, 1 << max(raw_imax - 1, 1).bit_length() - 3)
     return pad_to(raw_imax, step)
+
+
+def straggler_exit_at(z: int, n_zmws: int, mesh: Mesh | None = None) -> int:
+    """The live-ZMW count at or below which the refine loop of a Z-slot
+    batch of n_zmws ZMWs stops and leaves the rest to the straggler
+    continuation (device_refine.run_refine_loop, BatchPolisher.refine);
+    0: no early exit.  pbccs_tpu's Z // 32, and 0 under any mesh, 1 x 1
+    included (pbccs_tpu's sharded loop has no exit).  Also 0 when the
+    batch holds no more ZMWs than that, as a quarantine bisection's part
+    padded to its parent's Z can: its loop would stop before its first
+    round with every ZMW a straggler, which pbccs_tpu leaves unrefined;
+    here it polishes at its own Z."""
+    if mesh is not None or n_zmws <= z // 32:
+        return 0
+    return z // 32
+
+
+def straggler_sub_z(z: int) -> int:
+    """The ZMW axis of the straggler sub-batches of a Z-slot batch
+    (pbccs_tpu's): the loop exits once Z // 32 or fewer ZMWs are live,
+    and the sub-batch pads to the next power of two of that bound, at
+    least 4, so its shapes do not depend on the draw."""
+    return next_pow2(max(z // 32, 1), 4)
 
 
 def length_bucket(tpl_len: int, max_read_len: int) -> tuple[int, int]:
@@ -278,6 +318,79 @@ def _update_active(active, ll_a, ll_b, rlens, tstarts, tends):
     return active & mated_mask(ll_a, ll_b, rlens, tstarts, tends)
 
 
+class _Carry(NamedTuple):
+    """Loop-state rows a straggler sub-batch starts from, in its row
+    order: the parent loop's live read mask, nearby filter, template-hash
+    ring and ring count at the early exit."""
+
+    active: torch.Tensor       # (n, R) bool
+    allowed: torch.Tensor      # (n, Jmax) bool
+    history: torch.Tensor      # (n, HISTORY) int64
+    hist_n: torch.Tensor       # (n,) int32
+
+
+@dataclasses.dataclass
+class _Continuation:
+    """What a refine() leaves for the polisher's later calls (pbccs_tpu's
+    _Continuation).
+
+    * `sub_polishers` maps a parent ZMW -> (straggler sub-polisher, its
+      row there).  Non-empty implies `stale_fills`: those parent rows'
+      fills are the early exit's, so the next refine() rebuilds them
+      from the current templates (begin_refine), and their QVs come from the sub-polisher
+      (delegated_qvs), never from the parent's sweep.
+    * `qv_cache` holds (skip set of the sweep, (Z, Jmax) int32 QVs) of
+      the sweep refine() ran on the loop's final templates; it serves a
+      consensus_qvs call iff no ZMW that call sweeps was skipped in it.
+      begin_refine drops it."""
+
+    stale_fills: bool = False
+    qv_cache: tuple | None = None
+    sub_polishers: dict = dataclasses.field(default_factory=dict)
+
+    def begin_refine(self, polisher: "BatchPolisher") -> None:
+        """Entering a new refinement: rebuild stale fills from the current
+        templates, then drop what the previous loop's end left."""
+        if self.stale_fills:
+            polisher._rebuild_stale_fills()
+            self.stale_fills = False
+        self.sub_polishers = {}
+        self.qv_cache = None
+
+    def record_continuation(self, mapping: dict) -> None:
+        """A straggler sub-batch finished these parent ZMWs."""
+        self.sub_polishers.update(mapping)
+        self.stale_fills = True
+
+    def cached_qvs(self, n_zmws: int, skip: set, tpls) -> list | None:
+        """QVs from the refine-time sweep if every ZMW live in this call
+        was live in that sweep too, else None."""
+        if self.qv_cache is None:
+            return None
+        cached_skip, qv = self.qv_cache
+        if (set(range(n_zmws)) - skip) & cached_skip:
+            return None
+        return [np.zeros(0, np.int32) if z in skip
+                else qv[z, : len(tpls[z])].astype(np.int32)
+                for z in range(n_zmws)]
+
+    def delegated_qvs(self, out: list, skip: set) -> list:
+        """Overwrite the QVs of continuation-finished ZMWs from their
+        sub-polishers, one consensus_qvs call per sub-polisher; a
+        sub-polisher whose ZMWs are all skipped runs no sweep."""
+        subs = self.sub_polishers
+        for sub in {id(s): s for s, _ in subs.values()}.values():
+            wanted = {i: z for z, (s, i) in subs.items()
+                      if s is sub and z not in skip}
+            if not wanted:
+                continue
+            sub_q = sub.consensus_qvs(skip={i for z, (s, i) in subs.items()
+                                            if s is sub and z in skip})
+            for i, z in wanted.items():
+                out[z] = sub_q[i]
+        return out
+
+
 class BatchPolisher:
     """Z bucketed ZMWs polished in lockstep on one device or on a mesh.
 
@@ -312,6 +425,7 @@ class BatchPolisher:
         self.config = config or ArrowConfig()
         self.min_zscore = min_zscore
         self.n_zmws = len(tasks)
+        self._tasks = list(tasks)
         self.tpls: list[np.ndarray] = [np.asarray(t.tpl, np.int8)
                                        for t in tasks]
 
@@ -338,7 +452,7 @@ class BatchPolisher:
         self._real_rows = pb.real_rows
         self._host_tables = pb.host_tables
         self._stats_host = None   # lazily fetched AddRead statistics
-        self._qv_cache = None     # (skip set, (Z, Jmax) QVs) of the last loop
+        self._cont = _Continuation()
 
         Z, R = self._Z, self._R
         n_reads_real = int(self._real_rows.sum())
@@ -517,17 +631,31 @@ class BatchPolisher:
         return [torch.as_tensor(m[i * zb: (i + 1) * zb], device=row[0].device)
                 for i, row in enumerate(self._grid)]
 
-    def _loop_grid(self, skip=None) -> list[list[dr.Block]]:
-        """A fresh loop start from the current device state: ZMWs in
-        `skip` and padding ZMWs start done, counters and filters reset."""
+    def _loop_grid(self, skip=None, it0: int = 0,
+                   carry: _Carry | None = None) -> list[list[dr.Block]]:
+        """A loop start from the current device state: ZMWs in `skip` and
+        padding ZMWs start done, counters reset, the round counter at
+        `it0`.  The nearby filter and the hash ring start empty, except
+        in the rows a straggler `carry` gives (a 1 x 1 grid's first
+        rows), which also take the carried live read mask."""
         def fresh(st, done):
             zeros = torch.zeros_like(st.iterations)
+            allowed = torch.ones_like(st.allowed)
+            history = torch.zeros_like(st.history)
+            hist_n, active = zeros.clone(), st.active
+            if carry is not None:
+                n = carry.hist_n.shape[0]
+                active = active.clone()
+                for plane, rows in ((active, carry.active),
+                                    (allowed, carry.allowed),
+                                    (history, carry.history),
+                                    (hist_n, carry.hist_n)):
+                    plane[:n] = rows
             return dataclasses.replace(
-                st, done=done.to(st.tpl.device),
+                st, done=done.to(st.tpl.device), active=active,
                 converged=torch.zeros_like(st.converged), iterations=zeros,
-                n_tested=zeros, n_applied=zeros,
-                allowed=torch.ones_like(st.allowed),
-                history=torch.zeros_like(st.history), hist_n=zeros, it=0)
+                n_tested=zeros, n_applied=zeros, allowed=allowed,
+                history=history, hist_n=hist_n, it=it0)
 
         return [[dataclasses.replace(blk, st=fresh(blk.st, m)) for blk in row]
                 for row, m in zip(self._grid, self._row_masks(skip))]
@@ -538,26 +666,33 @@ class BatchPolisher:
                                            min_fast_edge=MIN_FAST_EDGE_WLEN))
 
     def refine(self, opts: RefineOptions | None = None,
-               skip=None) -> list[RefineResult]:
+               skip=None, budget: int | None = None) -> list[RefineResult]:
         """Lockstep greedy refinement of the batch on the device, then the
         QV sweep on the final templates (served later by consensus_qvs).
 
         ZMW indices in `skip` take no part (their RefineResult stays
         non-converged).  A template that outgrows the bucket re-buckets
-        the batch (self._Jmax grows)."""
+        the batch (self._Jmax grows).  `budget` caps the rounds this call
+        may run (default opts.max_iterations); the straggler continuation
+        passes its sub-batch the rounds the parent left, so parent and
+        sub together never run more than opts.max_iterations."""
         with obs_roofline.refine_scope(imax=self._Imax, jmax=self._Jmax,
                                        r=self._R):
-            return self._refine_impl(opts, skip)
+            return self._refine_impl(opts, skip, budget)
 
-    def _refine_impl(self, opts, skip) -> list[RefineResult]:
+    def _refine_impl(self, opts, skip, budget,
+                     carry: _Carry | None = None) -> list[RefineResult]:
         opts = opts or RefineOptions()
-        grid = self._loop_grid(skip)
+        budget = opts.max_iterations if budget is None else budget
+        it0 = opts.max_iterations - budget
+        self._cont.begin_refine(self)
+        grid = self._loop_grid(skip, it0, carry)
+        exit_at = straggler_exit_at(self._Z, self.n_zmws, self.mesh)
         dr.run_refine_loop(
             grid, width=self._W, max_iterations=opts.max_iterations,
             separation=opts.mutation_separation,
             neighborhood=opts.mutation_neighborhood,
-            min_fast_edge=MIN_FAST_EDGE_WLEN)
-        qv = self._qv_sweep(grid, skip)
+            min_fast_edge=MIN_FAST_EDGE_WLEN, exit_at=exit_at)
 
         self._grid = grid                # the loop's final device state
         self._Jmax = grid[0][0].st.tpl.shape[1]
@@ -568,36 +703,138 @@ class BatchPolisher:
             for st in (row[0].st for row in grid)]))
         for z in range(self.n_zmws):
             self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
-        self._qv_cache = (frozenset(skip or ()), qv)
         # flight recorder: the loop ran on the device with no per-round
         # fetch, so its rounds are rebuilt from the fetched iteration
-        # counts -- a ZMW with k iterations was live in rounds 0..k-1,
+        # counts -- a ZMW with k iterations was live in rounds it0..it0+k-1,
         # exact for the lockstep loop
         iters = h[: self.n_zmws, 2]
         for rnd in range(int(iters.max(initial=0))):
-            obs_flight.record_round(self._flight_tag, rnd,
+            obs_flight.record_round(self._flight_tag, it0 + rnd,
                                     int((iters > rnd).sum()), self.n_zmws,
                                     self._Z, source="device")
-        return [RefineResult(converged=bool(h[z, 1]), n_tested=int(h[z, 3]),
-                             n_applied=int(h[z, 4]), iterations=int(h[z, 2]))
-                for z in range(self.n_zmws)]
+        results = [RefineResult(converged=bool(h[z, 1]),
+                                n_tested=int(h[z, 3]),
+                                n_applied=int(h[z, 4]),
+                                iterations=int(h[z, 2]))
+                   for z in range(self.n_zmws)]
+
+        # stragglers: live ZMWs the early exit left with budget to spend
+        # (none where exit_at is 0: under a mesh the loop runs them to the
+        # end).  The loop is lockstep and a ZMW leaves it only by
+        # converging, so every straggler ran every round of this call.
+        skipset = set(skip or ())
+        stragglers = [
+            z for z in range(self.n_zmws)
+            if z not in skipset and not results[z].converged
+            and results[z].iterations < budget]
+        # the sweep skips the stragglers: the sub-batch scores their QVs
+        qv_skip = frozenset(skipset | set(stragglers))
+        self._cont.qv_cache = (qv_skip, self._qv_sweep(grid, qv_skip))
+        if stragglers:
+            sub, sub_res = self._continue(
+                stragglers, opts, budget - results[stragglers[0]].iterations)
+            for i, z in enumerate(stragglers):
+                self.tpls[z] = sub.tpls[i]
+                r, r0 = sub_res[i], results[z]
+                results[z] = RefineResult(
+                    converged=r.converged,
+                    n_tested=r0.n_tested + r.n_tested,
+                    n_applied=r0.n_applied + r.n_applied,
+                    iterations=r0.iterations + r.iterations)
+            self._cont.record_continuation(
+                {z: (sub, i) for i, z in enumerate(stragglers)})
+        return results
+
+    # ----------------------------------------------- straggler continuation
+
+    def straggler_shape_min_z(self) -> int:
+        """The ZMW axis of this polisher's straggler sub-batches
+        (straggler_sub_z of its Z)."""
+        return straggler_sub_z(self._Z)
+
+    def _straggler_sub(self, zmws: Sequence[int]) -> "BatchPolisher":
+        """The straggler sub-batch of these parent ZMWs: their current
+        templates, their reads, and their read windows as the loop left
+        them (the device state, not the AddRead-time windows), at the
+        parent's (Imax, Jmax, R) and band width and
+        Z = straggler_shape_min_z(), on the parent's device.  It does not
+        re-gate: min_zscore stays off and refine() carries the parent's
+        live read rows in."""
+        st = self._grid[0][0].st
+        idx = torch.as_tensor(list(zmws), device=st.tstarts.device)
+        ts, te = device_fetch(torch.stack([st.tstarts[idx], st.tends[idx]]))
+        tasks = []
+        for k, z in enumerate(zmws):
+            rows = np.nonzero(self._real_rows[z])[0]
+            tasks.append(ZmwTask(
+                f"straggler/{self._tasks[z].id}", self.tpls[z].copy(),
+                self._tasks[z].snr,
+                [self._reads[z, r, : self._rlens[z, r]].copy()
+                 for r in rows],
+                [int(self._strands[z, r]) for r in rows],
+                [int(ts[k, r]) for r in rows],
+                [int(te[k, r]) for r in rows]))
+        config = dataclasses.replace(
+            self.config, banding=dataclasses.replace(
+                self.config.banding, band_width=self._W))
+        return BatchPolisher(
+            tasks, config=config, device=self.device,
+            buckets=(self._Imax, self._Jmax, self._R,
+                     self.straggler_shape_min_z()))
+
+    def _continue(self, zmws: list[int], opts: RefineOptions,
+                  budget: int) -> tuple["BatchPolisher", list[RefineResult]]:
+        """Finish the stragglers `zmws` in a sub-batch that starts from
+        their loop state (_Carry) with `budget` rounds left and the
+        parent's round counter, inside the parent's refine scope; returns
+        (sub-polisher, its results).  Its rounds go to the flight
+        recorder at their true round numbers under the tag
+        straggler/<first straggler's id>+<count>."""
+        st = self._grid[0][0].st
+        idx = torch.as_tensor(zmws, device=st.tpl.device)
+        carry = _Carry(st.active[idx], st.allowed[idx], st.history[idx],
+                       st.hist_n[idx])
+        sub = self._straggler_sub(zmws)
+        return sub, sub._refine_impl(opts, None, budget, carry)
+
+    def _rebuild_stale_fills(self) -> None:
+        """After a continuation (pbccs_tpu's _setup(first=False)): put the
+        current templates, the stragglers' from their sub-batches, on the
+        device, re-bucket if one outgrew Jmax (the loop's rule), and
+        rebuild every fill; the read windows and live reads stay as the
+        parent's loop left them."""
+        blk = self._grid[0][0]
+        st = blk.st
+        max_len = max(len(t) for t in self.tpls)
+        if max_len + 2 > self._Jmax:
+            self._Jmax = _jmax_bucket(max_len)
+        tl, tlens = self._template_arrays()
+        dev = st.tpl.device
+        st.tpl = torch.as_tensor(tl, device=dev)
+        st.tlens = torch.as_tensor(tlens, device=dev)
+        st.allowed = torch.ones(self._Z, self._Jmax, dtype=torch.bool,
+                                device=dev)
+        dr.rebuild(st, blk.reads, blk.rlens, blk.strands, blk.table,
+                   width=self._W)
 
     # ------------------------------------------------------------------- QVs
 
     def consensus_qvs(self, skip=None) -> list[np.ndarray]:
         """Per-ZMW per-position QVs (reference ConsensusQVs,
         Consensus-inl.hpp:277-297).  Served from refine()'s sweep when
-        every ZMW live in this call was live in that sweep; otherwise one
-        sweep now.  ZMWs in `skip` get empty arrays."""
+        every ZMW this call sweeps was live in that sweep; otherwise one
+        sweep now.  A ZMW a straggler sub-batch finished takes its QVs
+        from that sub-polisher, never from this one's sweep.  ZMWs in
+        `skip` get empty arrays."""
         skip = set(skip or ())
-        live = set(range(self.n_zmws)) - skip
-        if self._qv_cache is not None and not live & self._qv_cache[0]:
-            qv = self._qv_cache[1]
-        else:
-            qv = self._qv_sweep(self._loop_grid(skip), skip)
-        return [np.zeros(0, np.int32) if z in skip
-                else qv[z, : len(self.tpls[z])].astype(np.int32)
-                for z in range(self.n_zmws)]
+        sweep_skip = skip | set(self._cont.sub_polishers)
+        out = self._cont.cached_qvs(self.n_zmws, sweep_skip, self.tpls)
+        if out is None:
+            qv = self._qv_sweep(self._loop_grid(sweep_skip), sweep_skip)
+            out = [np.zeros(0, np.int32) if z in sweep_skip
+                   else qv[z, : len(self.tpls[z])].astype(np.int32)
+                   for z in range(self.n_zmws)]
+        return self._cont.delegated_qvs(out, skip)
 
     def global_zscores(self) -> np.ndarray:
         """(Z,) z-score of the summed log-likelihood per ZMW, from the

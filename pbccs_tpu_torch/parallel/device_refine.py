@@ -30,11 +30,14 @@ case itself, as the host loop does: edge slots in a read window too
 short for the window-frame program are scored by full refills of the
 mutated window (K1), and a template that outgrows its bucket re-buckets
 (batch._jmax_bucket) and the loop carries on at the larger Jmax -- under
-a mesh too, where pbccs_tpu's sharded loop bails.  The JAX loop's
-straggler early exit (a TPU compile-menu device) is not
-ported: per-ZMW results do not depend on it.  The flags and sizes the
-host reads each round are blocking device-to-host copies; they go
-through runtime.timing.device_fetch, which times them as device wait."""
+a mesh too, where pbccs_tpu's sharded loop bails.  As pbccs_tpu's, an
+unsharded loop exits early once Z // 32 or fewer ZMWs are live
+(batch.straggler_exit_at): a round rebuilds the fills of all Z * R
+reads whatever the live count, so the batch polisher finishes the few
+stragglers in a small-Z sub-batch that carries their loop state over
+(batch.BatchPolisher.refine).  The flags and sizes the host reads each
+round are blocking device-to-host copies; they go through
+runtime.timing.device_fetch, which times them as device wait."""
 
 from __future__ import annotations
 
@@ -690,7 +693,7 @@ def _apply(row, pick: _Pick, geos) -> None:
 
 def run_refine_loop(grid, *, width: int, max_iterations: int,
                     separation: int, neighborhood: int,
-                    min_fast_edge: int) -> None:
+                    min_fast_edge: int, exit_at: int = 0) -> None:
     """Up to max_iterations rounds of enumerate -> score -> select ->
     splice -> rebuild over a grid of Blocks (rows of blocks), updating
     each block's state in place: pbccs_tpu's run_refine_loop and, for a
@@ -717,8 +720,13 @@ def run_refine_loop(grid, *, width: int, max_iterations: int,
     once), and over the whole grid on the first block's device the live
     count, the longest template (every row re-buckets together, as one
     batch does) and whether any ZMW applied a mutation (every block
-    rebuilds, as one batch does).  The straggler early exit is not
-    ported: per-ZMW results do not depend on it."""
+    rebuilds, as one batch does).
+
+    The straggler early exit (pbccs_tpu's): the loop also stops once the
+    live count it fetches each pass is `exit_at` or fewer, the value of
+    batch.straggler_exit_at for the batch (Z // 32 unsharded, 0 -- no
+    exit -- under a mesh), and the caller finishes those ZMWs
+    (batch.BatchPolisher.refine)."""
     from pbccs_tpu_torch.parallel import batch as batchmod
 
     leads = [row[0] for row in grid]
@@ -728,7 +736,7 @@ def run_refine_loop(grid, *, width: int, max_iterations: int,
     geos = {d: slot_grid(jmax, d) for d in devs}
     it = leads[0].st.it
     while it < max_iterations and int(device_fetch(_fold(
-            [(~b.st.done).sum() for b in leads], dev0))) > 0:
+            [(~b.st.done).sum() for b in leads], dev0))) > exit_at:
         picks = [_select(row, geos, separation=separation,
                          min_fast_edge=min_fast_edge) for row in grid]
 

@@ -806,7 +806,12 @@ def _polish_guarded(preps: Sequence[PreparedZmw],
     polish_prepared_batch (capacity -> split, device -> re-raise,
     task -> quarantine bisection or the serial fallback).  Bisection
     sub-dispatches run at this dispatch's (Imax, Jmax, R) and Z, so the
-    surviving ZMWs come out bit for bit as from this dispatch."""
+    surviving ZMWs come out bit for bit as from this dispatch.  A part's
+    refine loop may leave its stragglers at another round than this
+    dispatch's would, or not at all (parallel.batch.straggler_exit_at),
+    so a straggler runs some rounds at the sub-batch's Z instead of this
+    one: that keeps its bits too, as a ZMW's rounds do not depend on the
+    batch's Z (the read-axis and log-scale sums are float64)."""
     from pbccs_tpu_torch.resilience import quarantine, retry, watchdog
 
     def split(sub, note):

@@ -26,7 +26,11 @@ Prints one JSON report: the build cache's directory (`compile_cache`),
 on the card the kernel libraries loaded and the compiles and cache hits
 and misses that took (`kernels`), and `warmed` entries with `bucket`,
 `device`, `seconds`, `shapes` (what a matching batch polishes at) and
-the bucket's roofline `cost_card`.
+the bucket's roofline `cost_card`; a bucket whose refine loop can exit
+early for stragglers (parallel.batch.straggler_exit_at) also gets a `straggler` entry with
+the shapes and the cost card of its straggler sub-batch (pbccs_tpu's
+warm_straggler_shapes warms those shapes; the port has nothing to warm
+for them but the kernels).
 """
 
 from __future__ import annotations
@@ -111,6 +115,26 @@ def _bucket_shapes(n_zmws: int, n_passes: int, tpl_len: int) -> dict:
             "W": effective_band_width(BandingOptions(), jmax)}
 
 
+def _straggler_shapes(shapes: dict, n_zmws: int) -> dict | None:
+    """The shapes of a bucket's straggler sub-batch (the bucket's Imax,
+    Jmax, R and W at parallel.batch.straggler_sub_z of its Z), or None
+    when a batch of n_zmws ZMWs at those shapes has no early exit
+    (parallel.batch.straggler_exit_at)."""
+    from pbccs_tpu_torch.parallel.batch import (straggler_exit_at,
+                                                straggler_sub_z)
+
+    if not straggler_exit_at(shapes["Z"], n_zmws):
+        return None
+    return dict(shapes, Z=straggler_sub_z(shapes["Z"]))
+
+
+def _card_doc(card) -> dict:
+    return {"label": card.label, "flops": card.flops,
+            "bytes_accessed": card.bytes_accessed,
+            "peak_hbm_bytes": card.peak_hbm_bytes,
+            "intensity": card.intensity, "card_z": card.z}
+
+
 def _load_kernels(log) -> dict:
     """Build (or find built) and load every kernel library; returns the
     libraries, the seconds that took, and its compile and cache counts."""
@@ -186,11 +210,19 @@ def run_warmup(argv: list[str] | None = None, *, device=None) -> int:
                      "seconds": round(time.monotonic() - t0, 2),
                      "shapes": shapes}
             if card is not None:
-                entry["cost_card"] = {
-                    "label": card.label, "flops": card.flops,
-                    "bytes_accessed": card.bytes_accessed,
-                    "peak_hbm_bytes": card.peak_hbm_bytes,
-                    "intensity": card.intensity, "card_z": card.z}
+                entry["cost_card"] = _card_doc(card)
+            sub = _straggler_shapes(shapes, z)
+            if sub is not None:
+                # its own card at its Z: the sub-batch polishes under the
+                # bucket's label, so the card cache keeps the bucket's
+                entry["straggler"] = {"shapes": sub}
+                if card is not None:
+                    entry["straggler"]["cost_card"] = _card_doc(
+                        roofline.card_from_shapes(
+                            imax=sub["Imax"], jmax=sub["Jmax"], r=sub["R"],
+                            z=sub["Z"], width=sub["W"],
+                            guided_passes=guided_fill_passes(sub["Jmax"]),
+                            platform=roofline.device_platform(dev)))
             report.append(entry)
             log.info(f"warmup: {entry['bucket']} on {name}: shapes "
                      f"{shapes}")

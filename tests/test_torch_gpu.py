@@ -850,3 +850,87 @@ def test_compile_cache_second_build_is_all_hits(cuda, tmp_path):
                        "libs": runs[0]["libs"]}
     assert sorted(os.listdir(d)) == sorted(os.path.basename(p)
                                            for p in runs[0]["libs"])
+
+
+def _straggler_tasks(n: int):
+    """n 400 bp, 5-pass ZMWs; ZMW 0's draft carries 12 substitutions two
+    bases apart (closer than the mutation separation), so it needs many
+    more rounds than the others, whose drafts carry one."""
+    from pbccs_tpu_torch.parallel.batch import ZmwTask
+
+    rng = np.random.default_rng(53)
+    tasks = []
+    for z in range(n):
+        tpl, reads, strands, snr = simulate_zmw(rng, 400, 5)
+        draft = tpl.copy()
+        for p in (range(100, 124, 2) if z == 0 else (200,)):
+            draft[p] = (draft[p] + 1 + p % 3) % 4
+        tasks.append(ZmwTask(f"strag/{z}", draft, snr, reads, list(strands),
+                             [0] * len(reads), [len(draft)] * len(reads)))
+    return tasks
+
+
+def _polished(tasks, opts=None, **kw):
+    """(polisher, refine results, templates, QVs) of one BatchPolisher."""
+    from pbccs_tpu_torch.parallel import BatchPolisher
+
+    pol = BatchPolisher(tasks, **kw)
+    res = [vars(r) for r in pol.refine(opts)]
+    return pol, res, [t.tobytes() for t in pol.tpls], pol.consensus_qvs()
+
+
+def test_straggler_continuation_on_the_card(cuda, monkeypatch):
+    """The early exit at Z = 33 (one live ZMW) on the card: ZMW 0 finishes
+    in a Z = 4 sub-batch on the parent's device, whose setup, rounds and
+    QV sweep launch K1 and K3; every template and refine result equal the
+    same ZMWs polished in batches of at most 31 (no early exit), QVs
+    within 1.  A forced exit after round 2 at Z = 4 (the sub-batch at the
+    parent's Z) gives the uninterrupted run's results bit for bit."""
+    from pbccs_tpu_torch.parallel import BatchPolisher
+    from pbccs_tpu_torch.parallel import device_refine as dr
+
+    tasks = _straggler_tasks(33)
+    cont, log = BatchPolisher._continue, []
+
+    def counted(pol, zmws, opts, budget):
+        before = (fc.arrow_fill.launches, ds.dense_score.launches)
+        sub, res = cont(pol, zmws, opts, budget)
+        log.append((sub, fc.arrow_fill.launches - before[0],
+                    ds.dense_score.launches - before[1]))
+        return sub, res
+
+    monkeypatch.setattr(BatchPolisher, "_continue", counted)
+    pol, res, tpls, qvs = _polished(tasks, device=cuda)
+    (sub, k1, k3), = log
+    assert sorted(pol._cont.sub_polishers) == [0] and sub._Z == 4
+    assert sub.device == pol.device and k1 > 0 and k3 > 0
+    blk = sub._grid[0][0]
+    assert {t.device for t in (blk.reads, blk.st.tpl, blk.st.alpha.vals)} \
+        == {pol._grid[0][0].device}
+    shapes = (pol._Imax, pol._Jmax, pol._R)
+    parts = [_polished(tasks[lo: lo + 31], device=cuda, buckets=shapes)
+             for lo in (0, 31)]
+    assert not any(p[0]._cont.sub_polishers for p in parts)
+    assert res == parts[0][1] + parts[1][1]
+    assert tpls == parts[0][2] + parts[1][2]
+    for a, b in zip(qvs, parts[0][3] + parts[1][3]):
+        assert len(a) == len(b)
+        assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
+
+    monkeypatch.setattr(BatchPolisher, "_continue", cont)
+    small = tasks[:4]
+    _, *want = _polished(small, device=cuda)
+    real, calls = dr.run_refine_loop, []
+
+    def stop_after_2(grid, *, max_iterations, **kw):
+        calls.append(grid)
+        if len(calls) == 1:
+            max_iterations = grid[0][0].st.it + 2
+        return real(grid, max_iterations=max_iterations, **kw)
+
+    monkeypatch.setattr(dr, "run_refine_loop", stop_after_2)
+    pol, *got = _polished(small, device=cuda)
+    assert 0 in pol._cont.sub_polishers
+    assert got[:2] == want[:2]
+    assert [q.tobytes() for q in got[2]] == [q.tobytes() for q in want[2]]
+

@@ -590,6 +590,31 @@ def test_warmup_runs_tiny_bucket(capsys):
     assert entry["bucket"] == "2x3x40" and entry["shapes"]["Z"] == 2
     assert entry["cost_card"]["flops"] > 0
     assert "kernels" not in out       # nothing to build on the CPU
+    assert "straggler" not in entry   # Z // 32 == 0: no early exit
+
+
+def test_warmup_reports_the_straggler_sub_batch(capsys):
+    """A bucket of Z >= 32 reports its straggler sub-batch beside its
+    own shapes: the bucket's (Imax, Jmax, R, W) at Z = next_pow2(max(
+    Z // 32, 1), 4) (pbccs_tpu's formula), with that Z's cost card under
+    the bucket's label."""
+    from pbccs_tpu.utils import next_pow2
+
+    from pbccs_tpu_torch.cli import run
+
+    assert run(["warmup", "--bucket", "64x3x40", "--logLevel", "WARN"],
+               device="cpu") == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    entry, = out["warmed"]
+    shapes, sub = entry["shapes"], entry["straggler"]
+    assert shapes["Z"] == 64
+    assert sub["shapes"] == dict(shapes, Z=next_pow2(max(64 // 32, 1), 4))
+    card, sub_card = entry["cost_card"], sub["cost_card"]
+    assert sub_card["label"] == card["label"]
+    assert sub_card["card_z"] == 4
+    # the bucket's card may come from the card cache at another Z; the
+    # count is per ZMW slot
+    assert sub_card["flops"] * card["card_z"] == card["flops"] * 4 > 0
 
 
 # ---------------------------------------------------------- CLI integration
