@@ -106,8 +106,8 @@ script exits non-zero):
      chunks restored, fewer K1 launches than the uninterrupted run, the
      journal gone; (6) trace and profile, one run with --trace-out and
      --profile-dir: the spans filter, draft, polish, polish.setup,
-     polish.refine, polish.qv and emit, device wait on every polish and
-     polish.refine span, the torch.profiler trace naming K1's and K3's
+     polish.refine, polish.qv and emit, device wait inside every polish
+     and polish.refine span, the torch.profiler trace naming K1's and K3's
      kernels, the run's wall beside phase 10's and its stage seconds.
      The poison run dumps the flight recorder (ccs_flight_dumps_total
      {reason=quarantine} at least 1, the logged records all
@@ -1571,9 +1571,18 @@ def phase_resilience(cli_out) -> dict:
                  prof_dir)
     events = json.load(open(trace_path))["traceEvents"]
     names = {e["name"] for e in events}
+    # a fetch's wait goes to the innermost open span: a span's wait is
+    # its own and its descendants'
+    by_id = {e["id"]: e for e in events}
+    inclusive = dict.fromkeys(by_id, 0.0)
+    for e in events:
+        p = e
+        while p is not None:
+            inclusive[p["id"]] += e["args"]["device_wait_ms"]
+            p = by_id.get(p["args"].get("parent"))
     wait = {}
     for e in events:
-        wait.setdefault(e["name"], []).append(e["args"]["device_wait_ms"])
+        wait.setdefault(e["name"], []).append(inclusive[e["id"]])
     (prof_file,) = os.listdir(prof_dir)
     kernels = {e["name"] for e in json.load(open(os.path.join(
         prof_dir, prof_file)))["traceEvents"] if e.get("cat") == "kernel"}

@@ -6,10 +6,13 @@ question a continuous-batching change must answer is how much of each
 round's batch was still doing useful work.  This module records that:
 
   * every refinement ROUND records (live slots, converged fraction,
-    padding waste).  The port's refine loop runs on the device and
-    fetches once at its end, so BatchPolisher.refine rebuilds its rounds
-    from the fetched per-ZMW iteration counts (a ZMW with k iterations
-    was live in rounds 0..k-1), with source="device";
+    padding waste).  The port's refine loop runs on the device; the
+    host reads a few flags and sizes each round (the live count, the
+    longest template, whether any ZMW applied, one flag per pass of the
+    greedy pick: some 9 blocking fetches a round) but fetches the
+    per-ZMW counters once at the loop's end, so BatchPolisher.refine
+    rebuilds its rounds from the fetched per-ZMW iteration counts (a ZMW
+    with k iterations was live in rounds 0..k-1), with source="device";
   * the latest round's figures are exported as gauges
     (``ccs_refine_converged_fraction``, ``ccs_refine_slot_occupancy``,
     ``ccs_refine_padding_waste``) plus a ``ccs_refine_rounds_total``

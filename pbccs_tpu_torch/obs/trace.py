@@ -1,17 +1,38 @@
 """Per-ZMW trace spans with wall vs device-wait attribution.
 
 Port of pbccs_tpu.obs.trace.  A Tracer collects a span tree
-per thread (filter -> draft -> polish -> polish.setup / polish.refine /
-polish.qv -> emit) and exports Chrome-trace/Perfetto JSON ("traceEvents"
+per thread (filter -> draft -> polish -> polish.dispatch -> polish.setup
+/ polish.gates / polish.band_retry / polish.refine / polish.qv /
+polish.outcomes -> emit; the refine loop's rounds and their steps under
+polish.refine) and exports Chrome-trace/Perfetto JSON ("traceEvents"
 with complete "X" events: load chrome://tracing or ui.perfetto.dev).
 Wall time is the span's duration; device-wait seconds are attributed to
 the INNERMOST open span of the thread that blocked
 (runtime/timing.device_fetch routes its measured blocking time here), so
 a polish span decomposes into host work vs waiting on the card's queue
-at a device-to-host copy.
+at a device-to-host copy.  PORT_ONLY_SPANS names the spans pbccs_tpu
+does not record.
+
+The device trace's clock: while a tracer is installed and torch.profiler
+is recording, each span also opens a torch.profiler.record_function
+range of its name for its lifetime, so the program's steps sit in the
+profiler's host timeline beside the CUDA kernels, on their clock.
+Device time: a span opened with `device=` a CUDA device records a
+timing CUDA event on that device's current stream when it opens and
+another when it closes; finished_spans() (and so the Chrome export)
+puts the stretch between them in the span's args as `device_ms` once
+the closing event has completed (Event.query; it never synchronizes).
+The stretch runs from the card reaching the opening event to it
+finishing the span's last work.  A card still busy with earlier work
+reaches that event when the earlier work ends; an idle card reaches it
+at once, so the host's work up to the span's first launch counts too:
+`device_ms` is the span's wall on the card's clock, not the card's busy
+time (which the profiler's kernels under the span's range give).  On
+the CPU, or without `device=`, there is no event and no `device_ms`.
 
 Tracing is OFF unless a tracer is installed (CLI --trace-out, serve
-`trace` verb); the disabled fast path is one global read per span() call,
+`trace` verb, the benchmark's traced run); the disabled fast path is one
+global read per span() call -- no profiler range, no CUDA event --
 cheap enough to leave the instrumentation in the hot pipeline.
 
 Cross-process trace context: a span may carry an inbound `ctx` dict --
@@ -32,10 +53,53 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import sys
 import threading
 import time
 import uuid
 from typing import Any, Iterator
+
+
+#: span names the port records and pbccs_tpu does not: the batch polish's
+#: steps and the stages of device_refine.slot_grid_partial
+PORT_ONLY_SPANS = (
+    "polish.dispatch", "polish.gates", "polish.band_retry",
+    "polish.straggler", "polish.outcomes", "polish.round.select",
+    "polish.round.greedy", "polish.round.apply", "polish.round.rebuild",
+    "slot_grid.geometry", "slot_grid.k3", "slot_grid.edge",
+    "slot_grid.splice_map", "slot_grid.refill")
+
+
+def _profiler_range(name: str):
+    """An entered torch.profiler.record_function range of `name` while
+    torch.profiler records (torch already imported: no profiler runs
+    without it), else None."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd._profiler_enabled():
+        return None
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
+
+
+def _device_event(device):
+    """A timing CUDA event recorded now on `device`'s current stream, or
+    None off a CUDA device, and None where recording fails: a card left
+    failing by a launch (which the polish's guard recovers from) costs
+    the span its device time, and the program's own call raises the
+    error, not the tracer."""
+    torch = sys.modules.get("torch")
+    if device is None or torch is None:
+        return None
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    try:
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(dev))
+    except Exception:  # noqa: BLE001 -- tracing never raises into the program
+        return None
+    return ev
 
 
 def new_trace_id() -> str:
@@ -49,7 +113,7 @@ class Span:
 
     __slots__ = ("name", "args", "tid", "t0", "t1", "device_wait_s",
                  "parent", "index", "trace_id", "remote_parent", "sid",
-                 "open")
+                 "open", "events")
 
     def __init__(self, name: str, args: dict[str, Any], tid: int,
                  t0: float, parent: "Span | None", index: int,
@@ -68,6 +132,8 @@ class Span:
         self.remote_parent = remote_parent
         self.sid = sid          # explicit span id (router retro-spans)
         self.open = True
+        # CUDA events [opened, closed] of a span opened with a device
+        self.events: list | None = None
 
     @property
     def duration_s(self) -> float:
@@ -102,13 +168,16 @@ class Tracer:
         return stack
 
     @contextlib.contextmanager
-    def span(self, name: str, ctx: dict | None = None,
+    def span(self, name: str, ctx: dict | None = None, *, device=None,
              **args) -> Iterator[Span | None]:
         """Record one span, nested in the calling thread's innermost open
-        span.  `ctx` is an inbound cross-process trace context
+        span, inside a profiler range of its name while torch.profiler
+        records.  `ctx` is an inbound cross-process trace context
         ({"trace_id", "span_id"}): the span adopts its trace_id and
         records its span_id as the REMOTE parent; without ctx the
-        trace_id is inherited from the enclosing span (if any)."""
+        trace_id is inherited from the enclosing span (if any).  On a
+        CUDA `device` the span also records its device time (module
+        docstring)."""
         stack = self._stack()
         parent = stack[-1] if stack else None
         trace_id = remote_parent = None
@@ -129,6 +198,10 @@ class Tracer:
         if sp is None:
             yield None
             return
+        ev = _device_event(device)
+        if ev is not None:
+            sp.events = [ev]
+        rf = _profiler_range(name)
         stack.append(sp)
         try:
             yield sp
@@ -136,6 +209,11 @@ class Tracer:
             sp.t1 = time.perf_counter()
             sp.open = False
             stack.pop()
+            if rf is not None:
+                rf.__exit__(None, None, None)
+            if ev is not None:
+                end = _device_event(device)
+                sp.events = None if end is None else [ev, end]
 
     def add_span(self, name: str, duration_s: float, *,
                  ctx: dict | None = None, span_id: str | None = None,
@@ -191,9 +269,23 @@ class Tracer:
         with `open` still True and t1 frozen at their start; the Chrome
         export tags them (args.open) and measures them to the capture
         instant so a mid-flight capture never renders zero-duration
-        lies."""
+        lies.  A closed span whose closing CUDA event has completed gets
+        its `device_ms` in its args here."""
         with self._lock:
-            return list(self._spans)
+            spans = list(self._spans)
+        for sp in spans:
+            ev = sp.events
+            if ev is None or sp.open:
+                continue
+            try:
+                done = ev[1].query()
+                if done:
+                    sp.args["device_ms"] = ev[0].elapsed_time(ev[1])
+            except Exception:  # noqa: BLE001 -- a failed card: no device time
+                done = True
+            if done:
+                sp.events = None
+        return spans
 
     def to_chrome(self) -> dict[str, Any]:
         """Chrome-trace JSON object.  ts/dur are microseconds from the
@@ -307,15 +399,17 @@ def clear_tracer(expected: Tracer) -> bool:
 
 
 @contextlib.contextmanager
-def span(name: str, ctx: dict | None = None, **args) -> Iterator[Span | None]:
-    """Record a span on the installed tracer; no-op (one global read)
-    when tracing is off.  `ctx` carries an inbound cross-process trace
-    context (see Tracer.span)."""
+def span(name: str, ctx: dict | None = None, *, device=None,
+         **args) -> Iterator[Span | None]:
+    """Record a span on the installed tracer; no-op (one global read: no
+    profiler range, no CUDA event) when tracing is off.  `ctx` carries an
+    inbound cross-process trace context, `device` the device whose time
+    the span records (see Tracer.span)."""
     t = _tracer
     if t is None:
         yield None
         return
-    with t.span(name, ctx=ctx, **args) as sp:
+    with t.span(name, ctx=ctx, device=device, **args) as sp:
         yield sp
 
 

@@ -2,21 +2,22 @@
 
 Port of pbccs_tpu.parallel.batch.  Z bucketed ZMWs are polished
 together: one (Z*R)-read fill per rebuild, and the whole refinement loop
-plus the QV sweep run on the device (parallel.device_refine), so the
-host fetches once at the end.  With a mesh (parallel.mesh, a ('zmw' x
-'read') grid of devices) the batch splits into one (Z/nz, R/nr) block of
-reads per grid cell, each on its cell's device: per-read work (fills,
-the read gate, scoring) runs per block, per-ZMW work on the row's first
-device, and the read-axis sums are gathered there in block order.  Per-ZMW
+plus the QV sweep run on the device (parallel.device_refine); the host
+reads a few flags and sizes a round and fetches the results once at the
+end.  With a mesh (parallel.mesh, a ('zmw' x 'read') grid of devices)
+the batch splits into one (Z/nz, R/nr) block of reads per grid cell,
+each on its cell's device: per-read work (fills, the read gate,
+scoring) runs per block, per-ZMW work on the row's first device, and
+the read-axis sums are gathered there in block order.  Per-ZMW
 selection semantics are those of the JAX package's device loop
 (favorability floor, greedy well-separated subset, template-hash cycle
 trim); converged ZMWs drop out of the mutation workload.
 
 Observability as in the JAX package: bucket fill counters and
 histograms, the flight recorder's per-round records (rebuilt from the
-device loop's fetched iteration counts) and the roofline plane's card,
-charge and refine scope (obs/roofline.py; the card is counted from the
-shapes).
+device loop's fetched iteration counts), the refine loop's per-round
+trace spans (device_refine) and the roofline plane's card, charge and
+refine scope (obs/roofline.py; the card is counted from the shapes).
 
 A batch's host marshalling (premarshal) may be built ahead of time on a
 prepare thread of the device fleet's scheduled pipeline and adopted by
@@ -72,6 +73,7 @@ from pbccs_tpu_torch.models.arrow.scorer import (
 )
 from pbccs_tpu_torch.obs import flight as obs_flight
 from pbccs_tpu_torch.obs import roofline as obs_roofline
+from pbccs_tpu_torch.obs import trace as obs_trace
 from pbccs_tpu_torch.obs.metrics import default_registry, log_buckets
 from pbccs_tpu_torch.ops.fwdbwd_cuda import check_polisher_width
 from pbccs_tpu_torch.parallel import device_refine as dr
@@ -703,10 +705,10 @@ class BatchPolisher:
             for st in (row[0].st for row in grid)]))
         for z in range(self.n_zmws):
             self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
-        # flight recorder: the loop ran on the device with no per-round
-        # fetch, so its rounds are rebuilt from the fetched iteration
-        # counts -- a ZMW with k iterations was live in rounds it0..it0+k-1,
-        # exact for the lockstep loop
+        # flight recorder: the loop ran on the device and fetched only
+        # flags and sizes per round, so its rounds are rebuilt from the
+        # fetched iteration counts -- a ZMW with k iterations was live in
+        # rounds it0..it0+k-1, exact for the lockstep loop
         iters = h[: self.n_zmws, 2]
         for rnd in range(int(iters.max(initial=0))):
             obs_flight.record_round(self._flight_tag, it0 + rnd,
@@ -789,13 +791,17 @@ class BatchPolisher:
         parent's round counter, inside the parent's refine scope; returns
         (sub-polisher, its results).  Its rounds go to the flight
         recorder at their true round numbers under the tag
-        straggler/<first straggler's id>+<count>."""
-        st = self._grid[0][0].st
-        idx = torch.as_tensor(zmws, device=st.tpl.device)
-        carry = _Carry(st.active[idx], st.allowed[idx], st.history[idx],
-                       st.hist_n[idx])
-        sub = self._straggler_sub(zmws)
-        return sub, sub._refine_impl(opts, None, budget, carry)
+        straggler/<first straggler's id>+<count>, all inside the
+        `polish.straggler` span (args `zmws`, `sub_z`)."""
+        with obs_trace.span("polish.straggler", device=self.device,
+                            zmws=len(zmws),
+                            sub_z=self.straggler_shape_min_z()):
+            st = self._grid[0][0].st
+            idx = torch.as_tensor(zmws, device=st.tpl.device)
+            carry = _Carry(st.active[idx], st.allowed[idx], st.history[idx],
+                           st.hist_n[idx])
+            sub = self._straggler_sub(zmws)
+            return sub, sub._refine_impl(opts, None, budget, carry)
 
     def _rebuild_stale_fills(self) -> None:
         """After a continuation (pbccs_tpu's _setup(first=False)): put the

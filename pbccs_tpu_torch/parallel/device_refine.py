@@ -37,7 +37,15 @@ reads whatever the live count, so the batch polisher finishes the few
 stragglers in a small-Z sub-batch that carries their loop state over
 (batch.BatchPolisher.refine).  The flags and sizes the host reads each
 round are blocking device-to-host copies; they go through
-runtime.timing.device_fetch, which times them as device wait."""
+runtime.timing.device_fetch, which times them as device wait.
+
+Trace spans (obs/trace.py; off unless a tracer is installed): one
+`polish.round` per pass of the loop (args `round`, `live`), with
+`polish.round.select` (the slot-grid stages, STAGES, and
+`polish.round.greedy`, arg `passes`), `polish.round.apply` and
+`polish.round.rebuild` under it.  A round's span ends with the fetch of
+the next pass's live count, which waits for the round's work; only the
+loop's first live count lies outside every round."""
 
 from __future__ import annotations
 
@@ -51,6 +59,7 @@ from pbccs_tpu_torch.models.arrow.mutations import (_LN10, _SLOT_BASES,
                                                     _SLOT_TYPES, DELETION,
                                                     INSERTION, QV_SATURATED,
                                                     SUBSTITUTION)
+from pbccs_tpu_torch.obs import trace as obs_trace
 from pbccs_tpu_torch.ops.fwdbwd import BandedMatrix
 from pbccs_tpu_torch.runtime.timing import device_fetch
 
@@ -140,7 +149,9 @@ def greedy_well_separated_posmajor(scores: torch.Tensor,
     lexicographic (score desc, slot asc) maximum among live candidates
     within +-separation of its position, then blocks their
     neighbourhoods; the result equals the sequential greedy scan.
-    separation must be >= 1 (RefineOptions' default is 10)."""
+    separation must be >= 1 (RefineOptions' default is 10).  Runs in the
+    `polish.round.greedy` span, whose arg `passes` counts the peeling
+    passes (one blocking fetch each)."""
     Z, M = scores.shape
     ns = M // jmax
     dev = scores.device
@@ -150,15 +161,20 @@ def greedy_well_separated_posmajor(scores: torch.Tensor,
     blocked = torch.zeros(Z, jmax, dtype=torch.bool, device=dev)
     alive = favorable.reshape(Z, jmax, ns).clone()
     ninf = torch.tensor(-float("inf"), device=dev)
-    while bool(device_fetch(alive.any())):
-        pos_sc = torch.where(alive, sc2, ninf).amax(dim=2)
-        hit = alive & (sc2 == pos_sc[..., None])
-        pos_sl = torch.where(hit, slot2, M).amin(dim=2)
-        _, win_sl = _lex_window_max(pos_sc, pos_sl, separation)
-        winner = alive & (win_sl[..., None] == slot2)
-        taken |= winner
-        blocked |= _window_or(winner.any(dim=2), separation)
-        alive &= ~winner & ~blocked[..., None]
+    with obs_trace.span("polish.round.greedy") as sp:
+        passes = 0
+        while bool(device_fetch(alive.any())):
+            passes += 1
+            pos_sc = torch.where(alive, sc2, ninf).amax(dim=2)
+            hit = alive & (sc2 == pos_sc[..., None])
+            pos_sl = torch.where(hit, slot2, M).amin(dim=2)
+            _, win_sl = _lex_window_max(pos_sc, pos_sl, separation)
+            winner = alive & (win_sl[..., None] == slot2)
+            taken |= winner
+            blocked |= _window_or(winner.any(dim=2), separation)
+            alive &= ~winner & ~blocked[..., None]
+        if sp is not None:
+            sp.args["passes"] = passes
     return taken.reshape(Z, M)
 
 
@@ -335,8 +351,9 @@ def _refill_pairs(pairs, flat_reads, flat_rlens, f_wt, f_wtr, f_wl, tables,
     return forward_loglik_batch(alpha, flat_rlens[zr], new_len)
 
 
-#: names of score_slot_grid's stages, as torch.profiler ranges
-#: (pbccs_tpu_torch/tools/profile_main_path.py reads their CUDA time)
+#: names of score_slot_grid's stages, each a trace span (and so, while
+#: torch.profiler records under a tracer, a profiler range: the port's
+#: tools/profile_main_path.py reads their CUDA time)
 STAGES = ("slot_grid.geometry", "slot_grid.k3", "slot_grid.edge",
           "slot_grid.splice_map", "slot_grid.refill")
 
@@ -368,9 +385,7 @@ def slot_grid_partial(st: RefineLoopState, reads, rlens, strands, table,
     of windows shorter than `min_fast_edge` (where the edge program's two
     regimes would overlap) take full-refill LLs instead (_refill_pairs),
     as the JAX host loop's fallback pairs do.  Each stage runs inside a
-    torch.profiler range named in STAGES."""
-    from torch.profiler import record_function
-
+    trace span named in STAGES."""
     from pbccs_tpu_torch.ops.dense_score_cuda import (
         PB, dense_interior_scores_batch, edge_window_scores_batch,
         splice_edge_rows, window_grid_to_template)
@@ -386,7 +401,7 @@ def slot_grid_partial(st: RefineLoopState, reads, rlens, strands, table,
     beta_f = BandedMatrix(*map(flat, st.beta))
     f_apre, f_bsuf = flat(st.a_prefix), flat(st.b_suffix)
 
-    with record_function(STAGES[0]):
+    with obs_trace.span("slot_grid.geometry"):
         overlap, interior, wlen = slot_geometry(
             st.tstarts[:, :, None], st.tends[:, :, None],
             strands[:, :, None], start[None, None, :], end[None, None, :],
@@ -416,26 +431,26 @@ def slot_grid_partial(st: RefineLoopState, reads, rlens, strands, table,
         live = (take(hi) - take(lo)) > 0
         live &= real_rows[:, :, None] & st.active[:, :, None]
 
-    with record_function(STAGES[1]):
+    with obs_trace.span("slot_grid.k3"):
         grid_w = dense_interior_scores_batch(
             f_reads, f_rlens, f_wt, f_wtr, f_wl, tables, alpha_f, beta_f,
             f_apre, f_bsuf, W, live.reshape(Z * R, NB))
-    with record_function(STAGES[2]):
+    with obs_trace.span("slot_grid.edge"):
         e6 = edge_window_scores_batch(f_reads, f_rlens, f_wt, f_wtr, f_wl,
                                       tables, alpha_f, beta_f, f_apre, f_bsuf,
                                       W)
-    with record_function(STAGES[3]):
+    with obs_trace.span("slot_grid.splice_map"):
         grid_w = splice_edge_rows(grid_w, e6, f_wl)
         mapped = window_grid_to_template(grid_w, flat(strands),
                                          flat(st.tstarts), flat(st.tends),
                                          jmax).reshape(Z, R, M)
-    with record_function(STAGES[4]):
+    with obs_trace.span("slot_grid.refill"):
         if bool(device_fetch(fb.any())):
             pairs = torch.nonzero(fb, as_tuple=True)
             mapped[pairs] = _refill_pairs(pairs, f_reads, f_rlens, f_wt,
                                           f_wtr, f_wl, tables, strands,
                                           st.tstarts, st.tends, end, W)
-    with record_function(STAGES[3]):
+    with obs_trace.span("slot_grid.splice_map"):
         return torch.where(score_mask, mapped - st.baselines[:, :, None],
                            0.0).sum(1, dtype=torch.float64)
 
@@ -726,7 +741,8 @@ def run_refine_loop(grid, *, width: int, max_iterations: int,
     live count it fetches each pass is `exit_at` or fewer, the value of
     batch.straggler_exit_at for the batch (Z // 32 unsharded, 0 -- no
     exit -- under a mesh), and the caller finishes those ZMWs
-    (batch.BatchPolisher.refine)."""
+    (batch.BatchPolisher.refine).  Each pass is a `polish.round` span
+    (module docstring)."""
     from pbccs_tpu_torch.parallel import batch as batchmod
 
     leads = [row[0] for row in grid]
@@ -734,44 +750,61 @@ def run_refine_loop(grid, *, width: int, max_iterations: int,
     jmax = leads[0].st.tpl.shape[1]
     devs = _grid_devices(grid)
     geos = {d: slot_grid(jmax, d) for d in devs}
+
+    def live_count() -> int:
+        return int(device_fetch(_fold([(~b.st.done).sum() for b in leads],
+                                      dev0)))
+
     it = leads[0].st.it
-    while it < max_iterations and int(device_fetch(_fold(
-            [(~b.st.done).sum() for b in leads], dev0))) > exit_at:
-        picks = [_select(row, geos, separation=separation,
-                         min_fast_edge=min_fast_edge) for row in grid]
+    live = live_count() if it < max_iterations else 0
+    while it < max_iterations and live > exit_at:
+        with obs_trace.span("polish.round", round=it, live=live):
+            with obs_trace.span("polish.round.select"):
+                picks = [_select(row, geos, separation=separation,
+                                 min_fast_edge=min_fast_edge) for row in grid]
 
-        # 5. re-bucket when an applied template outgrows Jmax, then apply
-        max_len = int(device_fetch(torch.stack(
-            [p.new_len.max().to(dev0) for p in picks]).max()))
-        if max_len + 2 > jmax:
-            jnew = batchmod._jmax_bucket(max_len)
-            for lead, p in zip(leads, picks):
-                lead.st.tpl = _pad_positions(lead.st.tpl, jmax, jnew, 4)
-                lead.st.allowed = _pad_positions(lead.st.allowed, jmax, jnew,
-                                                 True)
-                p.taken = _pad_positions(p.taken, jmax, jnew, False)
-                p.favorable = _pad_positions(p.favorable, jmax, jnew, False)
-            jmax = jnew
-            geos = {d: slot_grid(jmax, d) for d in devs}
-        for row, p in zip(grid, picks):
-            _apply(row, p, geos)
+            # 5. re-bucket when an applied template outgrows Jmax, then
+            # apply
+            with obs_trace.span("polish.round.apply"):
+                max_len = int(device_fetch(torch.stack(
+                    [p.new_len.max().to(dev0) for p in picks]).max()))
+                if max_len + 2 > jmax:
+                    jnew = batchmod._jmax_bucket(max_len)
+                    for lead, p in zip(leads, picks):
+                        lead.st.tpl = _pad_positions(lead.st.tpl, jmax, jnew,
+                                                     4)
+                        lead.st.allowed = _pad_positions(lead.st.allowed,
+                                                         jmax, jnew, True)
+                        p.taken = _pad_positions(p.taken, jmax, jnew, False)
+                        p.favorable = _pad_positions(p.favorable, jmax, jnew,
+                                                     False)
+                    jmax = jnew
+                    geos = {d: slot_grid(jmax, d) for d in devs}
+                for row, p in zip(grid, picks):
+                    _apply(row, p, geos)
 
-        # 6. rebuild fills (skipped when no ZMW applied anything)
-        if bool(device_fetch(torch.stack(
-                [p.pushing.any().to(dev0) for p in picks]).any())):
+            # 6. rebuild fills (skipped when no ZMW applied anything)
+            with obs_trace.span("polish.round.rebuild"):
+                if bool(device_fetch(torch.stack(
+                        [p.pushing.any().to(dev0) for p in picks]).any())):
+                    for row in grid:
+                        for blk in row:
+                            rebuild(blk.st, blk.reads, blk.rlens,
+                                    blk.strands, blk.table, width=width)
+
+                # 7. next round's nearby filter from this round's
+                # favorables
+                for lead, p in zip(leads, picks):
+                    start, end = geos[lead.device][:2]
+                    allowed = nearby_allowed(start[None, :], end[None, :],
+                                             p.favorable, neighborhood, jmax)
+                    lead.st.allowed = torch.where(p.fav_any[:, None],
+                                                  allowed, lead.st.allowed)
+            it += 1
             for row in grid:
                 for blk in row:
-                    rebuild(blk.st, blk.reads, blk.rlens, blk.strands,
-                            blk.table, width=width)
-
-        # 7. next round's nearby filter from this round's favorables
-        for lead, p in zip(leads, picks):
-            start, end = geos[lead.device][:2]
-            allowed = nearby_allowed(start[None, :], end[None, :],
-                                     p.favorable, neighborhood, jmax)
-            lead.st.allowed = torch.where(p.fav_any[:, None], allowed,
-                                          lead.st.allowed)
-        it += 1
-        for row in grid:
-            for blk in row:
-                blk.st.it = it
+                    blk.st.it = it
+            # the next pass's live count waits for this round's work: the
+            # round's last fetch
+            if it < max_iterations:
+                live = live_count()

@@ -502,95 +502,111 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
                         ) -> list[tuple[Failure, ConsensusResult | None]]:
     """One lockstep BatchPolisher over `preps` (shapes at least
     `buckets` = (Imax, Jmax, R[, Z])), outcomes ALIGNED with `preps`.  Raises
-    on any batch-path failure: polish_prepared_batch handles it."""
+    on any batch-path failure: polish_prepared_batch handles it.  Its
+    steps are the trace spans polish.setup, polish.gates,
+    polish.band_retry, polish.refine, polish.qv and polish.outcomes."""
     from pbccs_tpu_torch.parallel.batch import BatchPolisher
 
     t0 = time.monotonic()
     tasks = prebaked.tasks if prebaked is not None else _polish_tasks(preps)
-    with obs_trace.span("polish.setup", zmws=len(preps)):
+    with obs_trace.span("polish.setup", device=device, zmws=len(preps)):
         polisher = BatchPolisher(tasks, min_zscore=settings.min_zscore,
                                  buckets=buckets, device=device,
                                  prebaked=prebaked)
-    gate_info = [_read_gates(p, polisher.statuses[z], settings)
-                 for z, p in enumerate(preps)]
-    # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
-    # wider-band (2x) sub-batch.  Keep-better-width per ZMW: a ZMW polishes
-    # at the wide band iff it MATES more reads there (status !=
-    # ALPHABETAMISMATCH; the reference rebands to achieve alpha/beta
-    # agreement first and applies the z-score gate to whatever mated,
-    # SimpleRecursor.cpp:642-691).  Otherwise it stays in the narrow batch
-    # with its drops.
-    reband = sorted(z for z, p in enumerate(preps)
-                    if (polisher.statuses[z, : len(p.mapped)]
-                        == ADD_ALPHABETAMISMATCH).any())
+    with obs_trace.span("polish.gates", zmws=len(preps)):
+        gate_info = [_read_gates(p, polisher.statuses[z], settings)
+                     for z, p in enumerate(preps)]
+        # ZMWs that shed reads to the alpha/beta mating gate retry in ONE
+        # wider-band (2x) sub-batch.  Keep-better-width per ZMW: a ZMW
+        # polishes at the wide band iff it MATES more reads there (status
+        # != ALPHABETAMISMATCH; the reference rebands to achieve alpha/beta
+        # agreement first and applies the z-score gate to whatever mated,
+        # SimpleRecursor.cpp:642-691).  Otherwise it stays in the narrow
+        # batch with its drops.
+        reband = sorted(z for z, p in enumerate(preps)
+                        if (polisher.statuses[z, : len(p.mapped)]
+                            == ADD_ALPHABETAMISMATCH).any())
+        # z-score statistics describe the draft template (serial-path
+        # parity)
+        global_zs = polisher.global_zscores()
     wide = None
     wide_pick: dict[int, int] = {}
     if reband:
-        wcfg = dataclasses.replace(
-            polisher.config,
-            banding=dataclasses.replace(polisher.config.banding,
-                                        band_width=2 * polisher._W))
-        wide = BatchPolisher([tasks[z] for z in reband], config=wcfg,
-                             min_zscore=settings.min_zscore,
-                             buckets=(polisher._Imax, polisher._Jmax,
-                                      polisher._R),
-                             device=device)
-        for i, z in enumerate(reband):
-            nr = len(preps[z].mapped)
-            n_narrow = int((polisher.statuses[z, :nr]
-                            != ADD_ALPHABETAMISMATCH).sum())
-            n_wide = int((wide.statuses[i, :nr]
-                          != ADD_ALPHABETAMISMATCH).sum())
-            if n_wide > n_narrow:
-                wide_pick[z] = i
-                gate_info[z] = _read_gates(preps[z], wide.statuses[i],
-                                           settings)
-        _log.debug("band retry: %d ZMW(s) had mating failures at W=%d; %d "
-                   "adopted the 2x band", len(reband), polisher._W,
-                   len(wide_pick))
+        # the wide batch and the adoption choice; its refine and QVs run
+        # after the narrow refine, in a second span of the same name
+        with obs_trace.span("polish.band_retry", device=polisher.device,
+                            zmws=len(reband)) as sp:
+            wcfg = dataclasses.replace(
+                polisher.config,
+                banding=dataclasses.replace(polisher.config.banding,
+                                            band_width=2 * polisher._W))
+            wide = BatchPolisher([tasks[z] for z in reband], config=wcfg,
+                                 min_zscore=settings.min_zscore,
+                                 buckets=(polisher._Imax, polisher._Jmax,
+                                          polisher._R),
+                                 device=device)
+            for i, z in enumerate(reband):
+                nr = len(preps[z].mapped)
+                n_narrow = int((polisher.statuses[z, :nr]
+                                != ADD_ALPHABETAMISMATCH).sum())
+                n_wide = int((wide.statuses[i, :nr]
+                              != ADD_ALPHABETAMISMATCH).sum())
+                if n_wide > n_narrow:
+                    wide_pick[z] = i
+                    gate_info[z] = _read_gates(preps[z], wide.statuses[i],
+                                               settings)
+            _log.debug("band retry: %d ZMW(s) had mating failures at W=%d; "
+                       "%d adopted the 2x band", len(reband), polisher._W,
+                       len(wide_pick))
+            if sp is not None:
+                sp.args["adopted"] = len(wide_pick)
     # gate-failed ZMWs take no part in refinement/QV
     gate_failed = {z for z, g in enumerate(gate_info) if g[0] is not None}
     skip = gate_failed | set(wide_pick)
-    # z-score statistics describe the draft template (serial-path parity)
-    global_zs = polisher.global_zscores()
-    with obs_trace.span("polish.refine", zmws=len(preps) - len(skip)):
+    with obs_trace.span("polish.refine", device=polisher.device,
+                        zmws=len(preps) - len(skip)):
         refine_results = polisher.refine(settings.refine, skip=skip)
     wide_refine = wide_qvs = wide_gz = None
     if wide_pick:
-        live_wide = {wi for z, wi in wide_pick.items() if z not in gate_failed}
-        wide_skip = set(range(wide.n_zmws)) - live_wide
-        wide_gz = wide.global_zscores()
-        wide_refine = wide.refine(settings.refine, skip=wide_skip)
-        wide_qvs = wide.consensus_qvs(
-            skip=wide_skip | {i for i, r in enumerate(wide_refine)
-                              if not r.converged})
+        with obs_trace.span("polish.band_retry", device=polisher.device,
+                            zmws=len(reband), adopted=len(wide_pick)):
+            live_wide = {wi for z, wi in wide_pick.items()
+                         if z not in gate_failed}
+            wide_skip = set(range(wide.n_zmws)) - live_wide
+            wide_gz = wide.global_zscores()
+            wide_refine = wide.refine(settings.refine, skip=wide_skip)
+            wide_qvs = wide.consensus_qvs(
+                skip=wide_skip | {i for i, r in enumerate(wide_refine)
+                                  if not r.converged})
     # non-converged ZMWs are discarded by _finish_zmw: no QVs for them
     skip = skip | {z for z, r in enumerate(refine_results)
                    if not r.converged}
-    with obs_trace.span("polish.qv", zmws=len(preps) - len(skip)):
+    with obs_trace.span("polish.qv", device=polisher.device,
+                        zmws=len(preps) - len(skip)):
         qvs = polisher.consensus_qvs(skip=skip)
     polish_s = time.monotonic() - t0
     timing.add_stage("polish", polish_s)
     polish_ms = polish_s * 1e3 / max(len(preps), 1)
 
     outcomes: list[tuple[Failure, ConsensusResult | None]] = []
-    for z, p in enumerate(preps):
-        failure, status_counts, n_passes = gate_info[z]
-        if failure is not None:
-            outcomes.append((failure, None))
-            continue
-        nr = len(p.mapped)
-        if z in wide_pick:
-            i = wide_pick[z]
-            outcomes.append(_finish_zmw(
-                p, settings, wide.tpls[i], wide_qvs[i], wide_refine[i],
-                wide.zscores[i, :nr], wide_gz[i], status_counts, n_passes,
-                p.prep_ms + polish_ms))
-        else:
-            outcomes.append(_finish_zmw(
-                p, settings, polisher.tpls[z], qvs[z], refine_results[z],
-                polisher.zscores[z, :nr], global_zs[z], status_counts,
-                n_passes, p.prep_ms + polish_ms))
+    with obs_trace.span("polish.outcomes", zmws=len(preps)):
+        for z, p in enumerate(preps):
+            failure, status_counts, n_passes = gate_info[z]
+            if failure is not None:
+                outcomes.append((failure, None))
+                continue
+            nr = len(p.mapped)
+            if z in wide_pick:
+                i = wide_pick[z]
+                outcomes.append(_finish_zmw(
+                    p, settings, wide.tpls[i], wide_qvs[i], wide_refine[i],
+                    wide.zscores[i, :nr], wide_gz[i], status_counts,
+                    n_passes, p.prep_ms + polish_ms))
+            else:
+                outcomes.append(_finish_zmw(
+                    p, settings, polisher.tpls[z], qvs[z], refine_results[z],
+                    polisher.zscores[z, :nr], global_zs[z], status_counts,
+                    n_passes, p.prep_ms + polish_ms))
     return outcomes
 
 
@@ -714,7 +730,8 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
     thread), adopted by the full-batch dispatch only -- capacity parts,
     bisection sub-dispatches and serial rescues marshal their own.
 
-    Quiver ZMWs polish one by one with per-ZMW isolation."""
+    Quiver ZMWs polish one by one with per-ZMW isolation.  The whole
+    call, recovery included, is the trace span polish.dispatch."""
     if on_error not in ON_ERROR:
         raise ValueError(f"on_error must be one of {ON_ERROR}, "
                          f"got {on_error!r}")
@@ -722,34 +739,36 @@ def polish_prepared_batch(preps: Sequence[PreparedZmw],
     dev = resolve_device(device)
     if not preps:
         return []
-    _m_polish_dispatches.inc()
-    if settings.model == "quiver":
-        return [_isolated(lambda p=p: polish_prepared(p, settings,
-                                                      device=dev),
-                          "polish.quiver", p.chunk.id) for p in preps]
-    pin = _pinned_batch_shapes(preps, buckets)
-    cap = resources.default_governor().cap(
-        resources.shape_bucket(*pin), device=resources.current_device())
-    if cap is not None and len(preps) > cap:
-        # admission pre-split: the governor already learned this bucket
-        # runs out of memory past `cap` ZMWs on this device -- dispatch
-        # ceiling-sized parts pinned to the parent's (Imax, Jmax, R)
-        # instead of paying the OOM again
-        resources.note_presplit()
-        _log.info("memory governor: pre-splitting batch of %d ZMW(s) at "
-                  "ceiling %d (bucket %s)", len(preps), cap, pin)
-        out: list[tuple[Failure, ConsensusResult | None]] = []
-        start = 0
-        for size in resources.split_sizes(len(preps), cap):
-            out.extend(_polish_split_part(
-                preps[start:start + size], settings, dev, pin,
-                on_error=on_error, raise_device_shaped=raise_device_shaped))
-            start += size
-        return out
-    return _polish_guarded(preps, settings, dev, buckets=buckets, pin=pin,
-                           on_error=on_error,
-                           raise_device_shaped=raise_device_shaped,
-                           prebaked=prebaked)
+    with obs_trace.span("polish.dispatch", zmws=len(preps)):
+        _m_polish_dispatches.inc()
+        if settings.model == "quiver":
+            return [_isolated(lambda p=p: polish_prepared(p, settings,
+                                                          device=dev),
+                              "polish.quiver", p.chunk.id) for p in preps]
+        pin = _pinned_batch_shapes(preps, buckets)
+        cap = resources.default_governor().cap(
+            resources.shape_bucket(*pin), device=resources.current_device())
+        if cap is not None and len(preps) > cap:
+            # admission pre-split: the governor already learned this
+            # bucket runs out of memory past `cap` ZMWs on this device --
+            # dispatch ceiling-sized parts pinned to the parent's (Imax,
+            # Jmax, R) instead of paying the OOM again
+            resources.note_presplit()
+            _log.info("memory governor: pre-splitting batch of %d ZMW(s) "
+                      "at ceiling %d (bucket %s)", len(preps), cap, pin)
+            out: list[tuple[Failure, ConsensusResult | None]] = []
+            start = 0
+            for size in resources.split_sizes(len(preps), cap):
+                out.extend(_polish_split_part(
+                    preps[start:start + size], settings, dev, pin,
+                    on_error=on_error,
+                    raise_device_shaped=raise_device_shaped))
+                start += size
+            return out
+        return _polish_guarded(preps, settings, dev, buckets=buckets,
+                               pin=pin, on_error=on_error,
+                               raise_device_shaped=raise_device_shaped,
+                               prebaked=prebaked)
 
 
 def _polish_split_part(preps: Sequence[PreparedZmw],

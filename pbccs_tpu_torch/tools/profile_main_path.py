@@ -18,9 +18,10 @@ time grouped by kernel (arrow_fill, quiver_fill, dense_score, and
 PyTorch's own kernels by operator), the CUDA time of the port's kernels
 and of everything else (the torch glue and copies), and the CUDA time
 and launches of the torch glue in each stage of
-device_refine.score_slot_grid (its torch.profiler ranges,
-device_refine.STAGES).  Needs a CUDA device;
-exits non-zero without one."""
+device_refine.score_slot_grid (its trace spans, device_refine.STAGES,
+which enter the profiler as ranges while a tracer is installed: the
+profiled run installs one).  Needs a CUDA device; exits non-zero
+without one."""
 
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.dirname(
 
 import chip_smoke  # noqa: E402
 from pbccs_tpu_torch import pipeline  # noqa: E402
+from pbccs_tpu_torch.obs import trace as obs_trace  # noqa: E402
 from pbccs_tpu_torch.parallel.device_refine import STAGES  # noqa: E402
 
 
@@ -131,8 +133,12 @@ def main() -> int:
     run(warm, settings, batch)                               # warm-up
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t_draft, t_polish = run(chunks, settings, batch)
+    prev = obs_trace.set_tracer(obs_trace.Tracer())
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            t_draft, t_polish = run(chunks, settings, batch)
+    finally:
+        obs_trace.set_tracer(prev)
     events = prof.events()
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA

@@ -11,9 +11,9 @@ tests/test_trace_merge.py).
 
 Parity: the same operations on a registry of each package render the
 same Prometheus text and summary table; the CLI's --trace-out spans on
-the same FASTA have the same names and nesting as pbccs_tpu's (its host
-refinement loop's per-round `polish.round` spans aside: the port
-refines in its device loop, which, like pbccs_tpu's, has none); the
+the same FASTA have the same names and nesting as pbccs_tpu's, the
+refinement loop's per-round `polish.round` spans included, once the
+port-only spans (obs/trace.PORT_ONLY_SPANS) are projected out; the
 tool contract is the same JSON but for the command it names; the
 federation helpers and add_span export the same text and args as
 pbccs_tpu's, and the trace merge the same document as
@@ -353,14 +353,19 @@ class TestProfiling:
 
 def _span_shape(path):
     """Span names with their parents' names, as a multiset (the nesting
-    of the export), and the names of the roots."""
+    of the export), and the names of the roots.  The port-only spans
+    (obs_trace.PORT_ONLY_SPANS) are projected out: a span's parent is its
+    nearest ancestor of another name."""
     events = json.load(open(path))["traceEvents"]
     by_id = {e["id"]: e for e in events}
     pairs = Counter()
     for e in events:
-        if e["name"] == "polish.round":
+        if e["name"] in obs_trace.PORT_ONLY_SPANS:
             continue
         parent = by_id.get(e["args"].get("parent"))
+        while parent is not None \
+                and parent["name"] in obs_trace.PORT_ONLY_SPANS:
+            parent = by_id.get(parent["args"].get("parent"))
         pairs[(e["name"], parent["name"] if parent else None)] += 1
     return pairs
 
@@ -385,6 +390,7 @@ def test_cli_trace_spans_match_jax(tmp_path):
         shapes[who] = _span_shape(trace)
     assert shapes["port"] == shapes["jax"]
     assert shapes["port"][("polish.refine", "polish")] == 1
+    assert shapes["port"][("polish.round", "polish.refine")] > 0
     assert shapes["port"][("filter", None)] == 3
     events = json.load(open(tmp_path / "port.json"))["traceEvents"]
     assert {"device_wait_ms", "zmws"} <= set(

@@ -24,6 +24,7 @@ import torch
 
 from pbccs_tpu_torch.models.arrow.refine import RefineOptions
 from pbccs_tpu_torch.obs import flight as obs_flight
+from pbccs_tpu_torch.obs import trace as obs_trace
 from pbccs_tpu_torch.parallel import device_refine as tdr
 from pbccs_tpu_torch.parallel.batch import BatchPolisher, ZmwTask
 from pbccs_tpu_torch.parallel.mesh import make_zmw_mesh
@@ -183,6 +184,29 @@ def test_forced_exit_gives_the_uninterrupted_results(k, small, jax_small,
     j_res, j_tpls, j_qvs = jax_small
     _same(res, pol.tpls, j_res, j_tpls)
     _qvs_within(qvs, j_qvs, 1)
+
+
+def test_continuation_is_traced(small, monkeypatch):
+    """The continuation is the trace span polish.straggler (args zmws,
+    sub_z) around the sub-batch's build and loop: one polish.round per
+    pass of either loop, the sub-batch's under polish.straggler at the
+    round numbers the parent left, and the results unchanged."""
+    tracer = obs_trace.Tracer()
+    monkeypatch.setattr(obs_trace, "_tracer", tracer)
+    pol, res, _ = _polish(DRAW[:SMALL], stop_after=1,
+                          monkeypatch=monkeypatch)
+    s_pol, s_res, _ = small
+    _same(res, pol.tpls, s_res, s_pol.tpls)
+    spans = tracer.finished_spans()
+    strag, = [s for s in spans if s.name == "polish.straggler"]
+    assert strag.args == {"zmws": len(pol._cont.sub_polishers),
+                          "sub_z": pol.straggler_shape_min_z()}
+    rounds = [s for s in spans if s.name == "polish.round"]
+    assert len(rounds) == max(r.iterations for r in s_res)
+    assert [s.parent for s in rounds[:1]] == [None]
+    assert all(s.parent is strag for s in rounds[1:])
+    assert [s.args["round"] for s in rounds] == list(range(len(rounds)))
+    assert rounds[1].args["live"] == len(pol._cont.sub_polishers)
 
 
 def test_continuation_plumbing(monkeypatch):
