@@ -38,10 +38,16 @@ def encode_bases(seq: str) -> np.ndarray:
     return _BASE_LUT[np.frombuffer(seq.encode("ascii"), dtype=np.uint8)]
 
 
+_BASE_CHARS = np.frombuffer(BASES.encode("ascii"), dtype=np.uint8)
+
+
 def decode_bases(codes: np.ndarray) -> str:
     """int8 codes -> ASCII sequence. Pad codes (>=4) are dropped."""
     codes = np.asarray(codes)
-    return "".join(BASES[c] for c in codes if 0 <= c < 4)
+    if codes.size == 0:  # [] reads as float64
+        return ""
+    valid = codes[(codes >= 0) & (codes < N_BASES)]
+    return _BASE_CHARS[valid].tobytes().decode("ascii")
 
 
 _COMPLEMENT = np.array([3, 2, 1, 0, 4], dtype=np.int8)

@@ -170,7 +170,13 @@ class ConsensusResult:
     def qualities(self) -> str:
         """Phred+33 ASCII, clamped to [0, 93]
         (reference QVsToASCII, Consensus.h:328-339)."""
-        return "".join(chr(min(max(0, int(q)), 93) + 33) for q in self.qvs)
+        qvs = np.asarray(self.qvs)
+        if qvs.dtype.kind == "f":
+            if not np.isfinite(qvs).all():
+                raise ValueError("a QV is not finite")
+            qvs = np.trunc(qvs)  # int() truncates toward zero
+        return (np.clip(qvs, 0, 93).astype(np.uint8) + 33).tobytes() \
+            .decode("ascii")
 
 
 @dataclasses.dataclass

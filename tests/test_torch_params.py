@@ -64,6 +64,36 @@ def test_encode_decode_revcomp(seq):
     np.testing.assert_array_equal(tp.revcomp(codes), jp.revcomp(codes))
 
 
+def _code_cases():
+    """Codes decode_bases takes: random draws over each integer dtype with
+    pads (4), codes above 4 up to the dtype's largest and (signed dtypes)
+    negative codes down to its smallest, plus the edge inputs."""
+    cases = []
+    for seed, dtype in enumerate((np.int8, np.uint8, np.int32, np.int64)):
+        rng = np.random.default_rng(seed)
+        lo = 0 if np.issubdtype(dtype, np.unsignedinteger) else -3
+        codes = rng.integers(lo, 9, size=500).astype(dtype)
+        codes[::37] = np.iinfo(dtype).max
+        codes[1::41] = np.iinfo(dtype).min
+        cases.append(pytest.param(codes, id=np.dtype(dtype).name))
+    rng = np.random.default_rng(7)
+    cases += [
+        pytest.param(np.array([], np.int8), id="empty"),
+        pytest.param(np.full(64, tp.BASE_PAD, np.int8), id="all-pad"),
+        pytest.param([0, 1, 2, 3, 4, -1, 7, 2, 0], id="list"),
+        pytest.param(rng.integers(0, 4, size=2000).astype(np.int8),
+                     id="template-2kb"),
+    ]
+    return cases
+
+
+@pytest.mark.parametrize("codes", _code_cases())
+def test_decode_bases_matches_jax(codes):
+    got = tp.decode_bases(codes)
+    assert isinstance(got, str)
+    assert got == jp.decode_bases(codes)
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_host_tables_bitwise(seed):
     for snr in _snrs(seed):

@@ -155,6 +155,42 @@ def test_gate_failures_and_empty_batches():
     assert t.counts[tpipe.Failure.POOR_SNR] == 1 and t.total == 1
 
 
+def _result(qvs):
+    return tpipe.ConsensusResult(
+        id="m/0", sequence="", qvs=qvs, num_passes=0,
+        predicted_accuracy=0.0, global_zscore=0.0, avg_zscore=0.0,
+        zscores=np.zeros(0), status_counts=[0] * 5, mutations_tested=0,
+        mutations_applied=0, snr=np.zeros(4), elapsed_ms=0.0)
+
+
+def _qv_cases():
+    rng = np.random.default_rng(11)
+    return [
+        pytest.param(rng.integers(0, 94, size=2000).astype(np.int32),
+                     id="int32"),
+        pytest.param(np.array([-5, 0, 93, 94, 200], np.int32),
+                     id="int32-clipped"),
+        pytest.param(rng.uniform(-20.0, 120.0, size=500), id="float"),
+        pytest.param(np.array([-1.5, -0.5, 0.0, 0.99, 1.0, 92.7, 93.0,
+                               93.5, 150.0]), id="float-edges"),
+        pytest.param(np.array([], np.float64), id="empty"),
+    ]
+
+
+@pytest.mark.parametrize("qvs", _qv_cases())
+def test_qualities_match_per_base_ascii(qvs):
+    expected = "".join(chr(min(max(0, int(q)), 93) + 33) for q in qvs)
+    assert _result(qvs).qualities == expected
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_qualities_refuse_non_finite_qvs(bad):
+    """int() refuses NaN and inf, so the per-base expression raised on
+    them; the array form raises too instead of emitting a character."""
+    with pytest.raises(ValueError):
+        _result(np.array([20.0, bad])).qualities
+
+
 def test_entry_points_need_a_card_by_default(monkeypatch):
     """Without a CUDA device and without device="cpu" the entry points
     raise instead of running on the CPU."""
