@@ -30,6 +30,8 @@ from pbccs_tpu_torch.models.arrow.params import (ArrowConfig,
                                                  snr_to_transition_table_host,
                                                  template_transition_params,
                                                  transition_lookup)
+from pbccs_tpu_torch.obs import trace as obs_trace
+from pbccs_tpu_torch.obs.metrics import default_registry
 from pbccs_tpu_torch.ops import dense_score_cuda as dsc
 from pbccs_tpu_torch.ops.fwdbwd import (MAX_BAND_ADVANCE, BandedMatrix,
                                         guided_band_offsets)
@@ -48,6 +50,19 @@ ADD_SUCCESS, ADD_ALPHABETAMISMATCH, ADD_MEM_FAIL, ADD_POOR_ZSCORE, ADD_OTHER = r
 
 _AB_MISMATCH_TOL = 1e-3  # reference SimpleRecursor.cpp:53
 _MAX_BAND_SHIFT = MAX_BAND_ADVANCE
+
+# The port's counters of the guided refills: plain host adds over real
+# reads, made at fetches the polish makes anyway.  pbccs_tpu counts none,
+# so DESIGN.md's metrics table (its contract) lists neither (REG001).
+_reg = default_registry()
+# ccs-analyze: ignore[REG001] -- the port's own counter
+m_guided_reads = _reg.counter(
+    "ccs_fill_guided_reads_total",
+    "Argmax-guided forward refills run: real reads x guided passes")
+# ccs-analyze: ignore[REG001] -- the port's own counter
+m_guided_kept = _reg.counter(
+    "ccs_fill_guided_kept_total",
+    "Guided refills kept: log-likelihood at least the fill's before")
 
 
 def mated_mask(ll_a, ll_b, rlens, tstarts, tends) -> torch.Tensor:
@@ -107,7 +122,9 @@ def guided_fill_passes(jmax: int) -> int:
 
 class FillState(NamedTuple):
     """Banded alpha/beta fills of a read batch with their log-likelihoods
-    and scale prefix (alpha) / suffix (beta), leaves (R, ...)."""
+    and scale prefix (alpha) / suffix (beta), leaves (R, ...); `kept`
+    counts per read the guided refills kept (int32, on the device), None
+    where no guided pass ran."""
 
     alpha: BandedMatrix
     beta: BandedMatrix
@@ -115,6 +132,7 @@ class FillState(NamedTuple):
     ll_b: torch.Tensor
     apre: torch.Tensor
     bsuf: torch.Tensor
+    kept: torch.Tensor | None = None
 
 
 def _fill_alpha(reads, rlens, win_tpl, win_trans, wlens, width, offsets):
@@ -133,7 +151,13 @@ def fill_alpha_beta_batch(reads, rlens, win_tpl, win_trans, wlens,
     read whichever alpha has the better log-likelihood (never trade down:
     the first fill may have locked onto the right ridge).  Beta then runs
     on alpha's band.  Without guided passes both fills run on the diagonal
-    band, in one K1 launch on the card."""
+    band, in one K1 launch on the card.
+
+    The refill loop is the `fill.guided` span (args `reads`, the rows of
+    the batch, padding included, and `passes`); the count of refills kept
+    per read stays on the device (FillState.kept) for the caller to read
+    at a fetch it makes anyway."""
+    kept = None
     if not guided_passes:
         alpha, beta = forward_backward_batch(reads, rlens, win_tpl,
                                              win_trans, wlens, width)
@@ -141,23 +165,29 @@ def fill_alpha_beta_batch(reads, rlens, win_tpl, win_trans, wlens,
     else:
         alpha, ll_a = _fill_alpha(reads, rlens, win_tpl, win_trans, wlens,
                                   width, None)
-        for _ in range(guided_passes):
-            g_off = guided_band_offsets(alpha.vals, alpha.offsets, rlens,
-                                        wlens, width)
-            alpha_g, ll_g = _fill_alpha(reads, rlens, win_tpl, win_trans,
-                                        wlens, width, g_off)
-            keep = ll_g >= ll_a
-            alpha = BandedMatrix(
-                torch.where(keep[:, None, None], alpha_g.vals, alpha.vals),
-                torch.where(keep[:, None], alpha_g.offsets, alpha.offsets),
-                torch.where(keep[:, None], alpha_g.log_scales,
-                            alpha.log_scales))
-            ll_a = torch.where(keep, ll_g, ll_a)
+        # ccs-analyze: ignore[REG010] -- the port's own span (PORT_ONLY_SPANS)
+        with obs_trace.span("fill.guided", reads=int(rlens.shape[0]),
+                            passes=guided_passes):
+            for _ in range(guided_passes):
+                g_off = guided_band_offsets(alpha.vals, alpha.offsets, rlens,
+                                            wlens, width)
+                alpha_g, ll_g = _fill_alpha(reads, rlens, win_tpl, win_trans,
+                                            wlens, width, g_off)
+                keep = ll_g >= ll_a
+                alpha = BandedMatrix(
+                    torch.where(keep[:, None, None], alpha_g.vals,
+                                alpha.vals),
+                    torch.where(keep[:, None], alpha_g.offsets,
+                                alpha.offsets),
+                    torch.where(keep[:, None], alpha_g.log_scales,
+                                alpha.log_scales))
+                ll_a = torch.where(keep, ll_g, ll_a)
+                kept = keep.to(torch.int32) if kept is None else kept + keep
         beta = backward_batch(reads, rlens, win_tpl, win_trans, wlens, width,
                               offsets=alpha.offsets)
     ll_b = backward_loglik_batch(beta, wlens)
     return FillState(alpha, beta, ll_a, ll_b, scale_prefix(alpha.log_scales),
-                     scale_suffix(beta.log_scales))
+                     scale_suffix(beta.log_scales), kept)
 
 
 def fill_alpha_beta_batch_zr(reads, rlens, win_tpl, win_trans, wlens,
@@ -173,7 +203,15 @@ def fill_alpha_beta_batch_zr(reads, rlens, win_tpl, win_trans, wlens,
     return FillState(BandedMatrix(*map(unflat, out.alpha)),
                      BandedMatrix(*map(unflat, out.beta)),
                      unflat(out.ll_a), unflat(out.ll_b), unflat(out.apre),
-                     unflat(out.bsuf))
+                     unflat(out.bsuf),
+                     None if out.kept is None else unflat(out.kept))
+
+
+def count_guided(runs: int, kept: int) -> None:
+    """Add guided refills run (real reads x passes) and kept to their
+    counters, once their counts have reached the host."""
+    m_guided_reads.inc(runs)
+    m_guided_kept.inc(kept)
 
 
 def window_moments(strand, ts, te, mean_f, var_f, mean_r, var_r, L):
@@ -336,15 +374,21 @@ class ArrowMultiReadScorer:
             *geo, self.tpl_f, self.tpl_r, Lt, table)
         self.win_tpl, self.win_trans, self.wlens = (win_tpl[0], win_trans[0],
                                                     wlens[0])
+        passes = guided_fill_passes(self._Jmax)
         fill = fill_alpha_beta_batch(self._reads_dev, self._rlens_dev,
                                      self.win_tpl, self.win_trans,
-                                     self.wlens, self._W,
-                                     guided_fill_passes(self._Jmax))
+                                     self.wlens, self._W, passes)
         self.alpha, self.beta = fill.alpha, fill.beta
         self.a_prefix, self.b_suffix = fill.apre, fill.bsuf
         mu, var = _read_moments(*geo, self.trans_f, self.trans_r, Lt)
-        host = torch.stack([fill.ll_a, fill.ll_b, mu[0], var[0]]).cpu()
-        ll_a, ll_b, mu_h, var_h = host.double().numpy()
+        rows = [fill.ll_a, fill.ll_b, mu[0], var[0]]
+        if fill.kept is not None:       # the refills kept ride on the fetch
+            rows.append(fill.kept.to(fill.ll_b.dtype))
+        host = torch.stack(rows).cpu().double().numpy()
+        ll_a, ll_b, mu_h, var_h = host[:4]
+        if fill.kept is not None:
+            count_guided(self.n_reads * passes,
+                         int(host[4, : self.n_reads].sum()))
         self.baselines = ll_b
         self._ll_mu, self._ll_var = mu_h, var_h
         t = lambda a: torch.as_tensor(a)  # noqa: E731

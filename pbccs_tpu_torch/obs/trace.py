@@ -67,7 +67,7 @@ PORT_ONLY_SPANS = (
     "polish.straggler", "polish.outcomes", "polish.round.select",
     "polish.round.greedy", "polish.round.apply", "polish.round.rebuild",
     "slot_grid.geometry", "slot_grid.k3", "slot_grid.edge",
-    "slot_grid.splice_map", "slot_grid.refill")
+    "slot_grid.splice_map", "slot_grid.refill", "fill.guided")
 
 
 def _profiler_range(name: str):

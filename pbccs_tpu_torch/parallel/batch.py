@@ -46,6 +46,8 @@ under a mesh, nor in a batch of no more ZMWs than the threshold."""
 from __future__ import annotations
 
 import dataclasses
+import functools
+import operator
 from typing import NamedTuple, Sequence
 
 import numpy as np
@@ -66,6 +68,7 @@ from pbccs_tpu_torch.models.arrow.scorer import (
     ADD_SUCCESS,
     FillState,
     _read_moments,
+    count_guided,
     fill_alpha_beta_batch_zr,
     guided_fill_passes,
     mated_mask,
@@ -320,6 +323,38 @@ def _update_active(active, ll_a, ll_b, rlens, tstarts, tends):
     return active & mated_mask(ll_a, ll_b, rlens, tstarts, tends)
 
 
+def _add_guided(acc, kept, real, passes: int):
+    """acc, the (2, Zb) int32 guided refills run and kept per ZMW that the
+    host has not fetched yet (None: none), with one fill's added over its
+    real reads (`kept`: FillState.kept, None where it ran no guided
+    pass)."""
+    if kept is None:
+        return acc
+    add = torch.stack([real * passes, kept * real]).sum(2,
+                                                         dtype=torch.int32)
+    return add if acc is None else acc + add
+
+
+def _row_record(row) -> torch.Tensor:
+    """One ZMW row's end-of-refine record on its lead, (Zb, cols) int32:
+    tlens, iterations, n_tested, n_applied, converged, the live read mask
+    (R columns, the row's blocks in order), the template (Jmax columns)
+    and, where guided refills are pending in the row (every row or none),
+    their runs and kept last.  As many launches as the record without the
+    mask took: the flags and the template share one conversion."""
+    st, dev = row[0].st, row[0].device
+    active = st.active if len(row) == 1 else torch.cat(
+        [b.st.active.to(dev) for b in row], 1)
+    flags = torch.cat([st.converged.view(torch.int8)[:, None],
+                       active.view(torch.int8), st.tpl], 1)
+    parts = [torch.stack([st.tlens, st.iterations, st.n_tested,
+                          st.n_applied], 1), flags.to(torch.int32)]
+    pending = [b.st.guided.to(dev) for b in row if b.st.guided is not None]
+    if pending:
+        parts.append(functools.reduce(operator.add, pending).T)
+    return torch.cat(parts, 1)
+
+
 class _Carry(NamedTuple):
     """Loop-state rows a straggler sub-batch starts from, in its row
     order: the parent loop's live read mask, nearby filter, template-hash
@@ -455,6 +490,9 @@ class BatchPolisher:
         self._host_tables = pb.host_tables
         self._stats_host = None   # lazily fetched AddRead statistics
         self._cont = _Continuation()
+        # (n_zmws, R) bool: the reads live when the last refine() ended,
+        # the straggler sub-batch's for the ZMWs it finished
+        self.final_active: np.ndarray | None = None
 
         Z, R = self._Z, self._R
         n_reads_real = int(self._real_rows.sum())
@@ -580,9 +618,10 @@ class BatchPolisher:
     def _setup_block(self, p: dict):
         """One grid cell's setup on its device: (device_refine.Block,
         (5, Zb, Rb) AddRead statistics)."""
+        passes = guided_fill_passes(self._Jmax)
         s = _batch_setup(p["tpl"], p["tlens"], p["tables"], p["reads"],
                          p["rlens"], p["strands"], p["tstarts"], p["tends"],
-                         self._W, guided_fill_passes(self._Jmax))
+                         self._W, passes)
         ll_a, ll_b = s.fill.ll_a, s.fill.ll_b
         z32 = (ll_b - s.mu) / torch.sqrt(torch.clamp(s.var, min=1e-12))
         if np.isnan(self.min_zscore):
@@ -616,7 +655,8 @@ class BatchPolisher:
                                device=dev),
             history=torch.zeros(Zb, dr.HISTORY, dtype=torch.int64,
                                 device=dev),
-            hist_n=zeros)
+            hist_n=zeros,
+            guided=_add_guided(None, s.fill.kept, real, passes))
         return dr.Block(st, p["reads"], p["rlens"], p["strands"],
                         p["tables"], real), stats
 
@@ -698,26 +738,32 @@ class BatchPolisher:
 
         self._grid = grid                # the loop's final device state
         self._Jmax = grid[0][0].st.tpl.shape[1]
-        h = device_fetch(torch.cat([torch.cat([
-            torch.stack([st.tlens, st.converged.to(torch.int32),
-                         st.iterations, st.n_tested, st.n_applied], 1),
-            st.tpl.to(torch.int32)], dim=1).to(self.device)
-            for st in (row[0].st for row in grid)]))
+        h = device_fetch(torch.cat([_row_record(row).to(self.device)
+                                    for row in grid]))
+        # columns: tlens, iterations, n_tested, n_applied, converged, the
+        # R live read flags, the template, [guided runs, kept]
+        tpl0 = 5 + self._R
+        if h.shape[1] > tpl0 + self._Jmax:
+            count_guided(int(h[:, -2].sum()), int(h[:, -1].sum()))
+            for row in grid:
+                for blk in row:
+                    blk.st.guided = None     # counted
+        self.final_active = h[: self.n_zmws, 5: tpl0] != 0
         for z in range(self.n_zmws):
-            self.tpls[z] = h[z, 5: 5 + h[z, 0]].astype(np.int8)
+            self.tpls[z] = h[z, tpl0: tpl0 + h[z, 0]].astype(np.int8)
         # flight recorder: the loop ran on the device and fetched only
         # flags and sizes per round, so its rounds are rebuilt from the
         # fetched iteration counts -- a ZMW with k iterations was live in
         # rounds it0..it0+k-1, exact for the lockstep loop
-        iters = h[: self.n_zmws, 2]
+        iters = h[: self.n_zmws, 1]
         for rnd in range(int(iters.max(initial=0))):
             obs_flight.record_round(self._flight_tag, it0 + rnd,
                                     int((iters > rnd).sum()), self.n_zmws,
                                     self._Z, source="device")
-        results = [RefineResult(converged=bool(h[z, 1]),
-                                n_tested=int(h[z, 3]),
-                                n_applied=int(h[z, 4]),
-                                iterations=int(h[z, 2]))
+        results = [RefineResult(converged=bool(h[z, 4]),
+                                n_tested=int(h[z, 2]),
+                                n_applied=int(h[z, 3]),
+                                iterations=int(h[z, 1]))
                    for z in range(self.n_zmws)]
 
         # stragglers: live ZMWs the early exit left with budget to spend
@@ -737,6 +783,7 @@ class BatchPolisher:
                 stragglers, opts, budget - results[stragglers[0]].iterations)
             for i, z in enumerate(stragglers):
                 self.tpls[z] = sub.tpls[i]
+                self.final_active[z] = sub.final_active[i]
                 r, r0 = sub_res[i], results[z]
                 results[z] = RefineResult(
                     converged=r.converged,
@@ -821,7 +868,7 @@ class BatchPolisher:
         st.allowed = torch.ones(self._Z, self._Jmax, dtype=torch.bool,
                                 device=dev)
         dr.rebuild(st, blk.reads, blk.rlens, blk.strands, blk.table,
-                   width=self._W)
+                   blk.real_rows, width=self._W)
 
     # ------------------------------------------------------------------- QVs
 

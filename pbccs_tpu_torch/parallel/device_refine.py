@@ -298,6 +298,9 @@ class RefineLoopState:
     history: torch.Tensor      # (Z, HISTORY) int64 template-hash ring
     hist_n: torch.Tensor       # (Z,) int32
     it: int = 0
+    # (2, Z) int32 guided refills run and kept per ZMW since the polisher
+    # last fetched them (batch._add_guided); None: none pending
+    guided: torch.Tensor | None = None
 
 
 def slot_geometry(ts, te, strand, ms, me, is_ins):
@@ -566,18 +569,21 @@ def run_qv_ints(grid, skip_masks, *, min_fast_edge: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 
-def rebuild(st: RefineLoopState, reads, rlens, strands, table, *,
-            width: int) -> None:
+def rebuild(st: RefineLoopState, reads, rlens, strands, table, real_rows,
+            *, width: int) -> None:
     """Rebuild windows and fills against st's templates/windows in place,
     and drop reads whose new fills no longer mate from st.active.  The
     guided-refill schedule follows the state's bucket, as the JAX host
-    loop's _setup does after a re-bucket."""
+    loop's _setup does after a re-bucket; its refills over the real reads
+    (`real_rows`) add to st.guided."""
     from pbccs_tpu_torch.models.arrow.scorer import guided_fill_passes
     from pbccs_tpu_torch.parallel import batch as batchmod
 
+    passes = guided_fill_passes(st.tpl.shape[1])
     s = batchmod._batch_setup(st.tpl, st.tlens, table, reads, rlens,
-                              strands, st.tstarts, st.tends, width,
-                              guided_fill_passes(st.tpl.shape[1]))
+                              strands, st.tstarts, st.tends, width, passes)
+    st.guided = batchmod._add_guided(st.guided, s.fill.kept, real_rows,
+                                     passes)
     st.win_tpl, st.win_trans, st.wlens = s.win_tpl, s.win_trans, s.wlens
     st.alpha, st.beta = s.fill.alpha, s.fill.beta
     st.a_prefix, st.b_suffix = s.fill.apre, s.fill.bsuf
@@ -790,7 +796,8 @@ def run_refine_loop(grid, *, width: int, max_iterations: int,
                     for row in grid:
                         for blk in row:
                             rebuild(blk.st, blk.reads, blk.rlens,
-                                    blk.strands, blk.table, width=width)
+                                    blk.strands, blk.table, blk.real_rows,
+                                    width=width)
 
                 # 7. next round's nearby filter from this round's
                 # favorables

@@ -17,9 +17,12 @@ runs ArrowMultiReadScorer; with the Quiver model
 (ConsensusSettings.model = "quiver") each ZMW polishes on its own
 through QuiverMultiReadScorer.  Both use the generic refine loop.  Yield
 accounting keeps the reference's result categories (Consensus.h:155-208,
-ccs.cpp:233-262).  Trace spans (filter, draft, polish, polish.setup,
-polish.refine, polish.qv) and stage timers (draft, draft.poa, draft.map,
-polish) carry pbccs_tpu's names."""
+ccs.cpp:233-262), with one gate of the port's own on both Arrow paths:
+a ZMW whose refine shed reads (their fills stopped mating) until fewer
+than min_passes full passes stayed active is TooFewPasses, not Success
+(_passes_left; pbccs_tpu emits it).  Trace spans (filter, draft,
+polish, polish.setup, polish.refine, polish.qv) and stage timers (draft,
+draft.poa, draft.map, polish) carry pbccs_tpu's names."""
 
 from __future__ import annotations
 
@@ -61,6 +64,22 @@ _reg = default_registry()
 _m_polish_dispatches = _reg.counter(
     "ccs_polish_dispatches_total",
     "polish_prepared_batch dispatches (incl. sub-dispatch re-entries)")
+# the floor on the refine's read shedding (_passes_left): plain host adds
+# over real reads and ZMWs.  The floor is the port's own, so DESIGN.md's
+# metrics table (pbccs_tpu's contract) lists none of these (REG001).
+# ccs-analyze: ignore[REG001] -- the port's own counter
+_m_refine_reads = _reg.counter(
+    "ccs_refine_reads_total",
+    "Reads active when a ZMW's refine starts, once per ZMW")
+# ccs-analyze: ignore[REG001] -- the port's own counter
+_m_refine_shed = _reg.counter(
+    "ccs_refine_reads_shed_total",
+    "Of those, reads no longer active when the refine ends")
+# ccs-analyze: ignore[REG001] -- the port's own counter
+_m_shed_zmws = _reg.counter(
+    "ccs_zmws_shed_below_min_passes_total",
+    "ZMWs turned away from Success: fewer than min_passes full passes "
+    "still active after the refine")
 
 
 def record_zmw_failure(stage: str, exc: BaseException,
@@ -369,13 +388,36 @@ def _read_gates(prep: PreparedZmw, statuses: np.ndarray,
     return None, status_counts, n_passes
 
 
+def _passes_left(preps: Sequence[PreparedZmw],
+                 end: np.ndarray) -> np.ndarray:
+    """The full passes still active when each ZMW's refine ended: the
+    count _read_gates takes at AddRead, over the refine's final live
+    reads.  end: (n, R) bool, the live reads of these refined ZMWs when
+    their refine ended (padding rows False)."""
+    full = np.zeros(end.shape, bool)
+    for z, p in enumerate(preps):
+        full[z, : len(p.mapped)] = [m.is_full_pass for m in p.mapped]
+    return (full & end).sum(1)
+
+
+def _count_shed_reads(start: np.ndarray, end: np.ndarray) -> None:
+    """Count the reads live when refines started (`start`, (n, R) bool)
+    and those of them no longer live when they ended (`end`)."""
+    _m_refine_reads.inc(int(start.sum()))
+    _m_refine_shed.inc(int((start & ~end).sum()))
+
+
 def _finish_zmw(prep: PreparedZmw, settings: ConsensusSettings,
                 tpl: np.ndarray, qvs: np.ndarray, refine,
                 zscores: np.ndarray, global_z: float,
                 status_counts: list[int], n_passes: int,
-                elapsed_ms: float) -> tuple[Failure, ConsensusResult | None]:
+                elapsed_ms: float, passes_left: int | None = None
+                ) -> tuple[Failure, ConsensusResult | None]:
     """Post-polish yield gates + result assembly
-    (reference Consensus.h:497-553)."""
+    (reference Consensus.h:497-553).  Last, the port's floor on the
+    refine's read shedding: a ZMW that would be a Success with fewer than
+    min_passes full passes left active (`passes_left`, _passes_left; None
+    where the model sheds no reads) is TooFewPasses instead."""
     if not refine.converged:
         return Failure.NON_CONVERGENT, None
 
@@ -386,6 +428,10 @@ def _finish_zmw(prep: PreparedZmw, settings: ConsensusSettings,
     sequence = decode_bases(tpl)
     if len(sequence) != len(qvs):  # invalid bases reached the template
         return Failure.OTHER, None
+
+    if passes_left is not None and passes_left < settings.min_passes:
+        _m_shed_zmws.inc()
+        return Failure.TOO_FEW_PASSES, None
 
     zs = zscores[np.isfinite(zscores)]
     avg_z = float(zs.mean()) if len(zs) else float("nan")
@@ -457,14 +503,17 @@ def polish_prepared(prep: PreparedZmw, settings: ConsensusSettings, *,
         return failure, None
 
     global_z = scorer.global_zscore()
+    start = scorer.active.copy()
     refine = refine_consensus(scorer, settings.refine)
+    _count_shed_reads(start, scorer.active)
+    left = _passes_left([prep], scorer.active[None])
     if not refine.converged:
         return Failure.NON_CONVERGENT, None
     qvs = scorer.consensus_qvs()
     elapsed_ms = prep.prep_ms + (time.monotonic() - t0) * 1e3
     return _finish_zmw(prep, settings, scorer.tpl, qvs, refine,
                        scorer.zscores, global_z, status_counts, n_passes,
-                       elapsed_ms)
+                       elapsed_ms, int(left[0]))
 
 
 def process_chunk(chunk: Chunk, settings: ConsensusSettings | None = None, *,
@@ -596,6 +645,16 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
 
     outcomes: list[tuple[Failure, ConsensusResult | None]] = []
     with obs_trace.span("polish.outcomes", zmws=len(preps)):
+        # the live reads of each refined ZMW when its refine started (the
+        # AddRead gate's) and ended, from the polisher that refined it
+        start = polisher.active[: len(preps)].copy()
+        end = polisher.final_active.copy()
+        for z, i in wide_pick.items():
+            start[z], end[z] = wide.active[i], wide.final_active[i]
+        refined = [z for z in range(len(preps)) if z not in gate_failed]
+        _count_shed_reads(start[refined], end[refined])
+        left = dict(zip(refined, _passes_left([preps[z] for z in refined],
+                                              end[refined])))
         for z, p in enumerate(preps):
             failure, status_counts, n_passes = gate_info[z]
             if failure is not None:
@@ -607,12 +666,12 @@ def _polish_batch_arrow(preps: Sequence[PreparedZmw],
                 outcomes.append(_finish_zmw(
                     p, settings, wide.tpls[i], wide_qvs[i], wide_refine[i],
                     wide.zscores[i, :nr], wide_gz[i], status_counts,
-                    n_passes, p.prep_ms + polish_ms))
+                    n_passes, p.prep_ms + polish_ms, int(left[z])))
             else:
                 outcomes.append(_finish_zmw(
                     p, settings, polisher.tpls[z], qvs[z], refine_results[z],
                     polisher.zscores[z, :nr], global_zs[z], status_counts,
-                    n_passes, p.prep_ms + polish_ms))
+                    n_passes, p.prep_ms + polish_ms, int(left[z])))
     return outcomes
 
 
